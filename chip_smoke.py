@@ -21,7 +21,12 @@ before the final line:
    max_steps=100000) and rollout_chunked over 3 chunks of 1500 steps
    (and once with exact=True), timed; then K1 against its plain version
    on the 4096-env mid-game carry over a 200-step window in which games
-   end by a win; kernel times beside their plain versions.
+   end by a win; kernel times beside their plain versions;
+6. K1's cost probes on the carry phase 5 leaves: K1-null, P1 (null
+   copy), P2 (op chain, nine shapes, both ops, k=4096) and P3 (step
+   prefix, cuts 0-3 over 8 steps) against their plain versions, then the
+   probe path: the measurements of the four eldorado_tpu_torch.tools
+   modules at short step counts, printed as the tools print them.
 
 The line before last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Nothing here imports jax.
@@ -39,6 +44,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 N_MAIN, CHUNK, N_CHUNKS = 4096, 1500, 3
 WIN_WINDOW = 200   # phase 5: K1 against plain over this many main-path steps
+PREFIX_STEPS = 8   # phase 6: P3 against plain over this many steps
+OP_K = 4096        # phase 6: P2's chain length
 
 
 def fail(msg: str):
@@ -69,6 +76,10 @@ def expect_equal(tag: str, a: dict, b: dict):
     if bad:
         fail(f"{tag}: fields differ: {bad} (max abs err {err})")
     return err
+
+
+def max_err(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
 
 
 def cuda_ms(fn, reps: int = 1):
@@ -115,8 +126,9 @@ def main():
     lib = build.load()
     print(f"phase 0: kernels built in {lib.seconds:.1f} s -> {lib.path.name}")
     for line in lib.log.splitlines():
-        if any(k in line for k in ("entry function", "registers",
-                                   "stack frame")):
+        if line.startswith("== ") or any(
+                k in line for k in ("entry function", "registers",
+                                    "stack frame")):
             print(f"  ptxas: {line.strip()}")
 
     # ---- phase 1: mapgen against the oracle goldens -------------------
@@ -303,12 +315,146 @@ def main():
          "launches": launches["K2"], "max_abs_err": err_k2,
          "ms": ms_k2, "plain_ms": ms_plain2, "per": "128-env reset queue"},
     ]
+    record["kernels"] += phase6(dev, c, srng, states)
     if "jax" in sys.modules:
         fail("jax was imported")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
+
+
+def phase6(dev, c, srng, states):
+    """K1's cost probes on the main path's 4096-env carry: each kernel
+    against its plain version, then the probe path (the four tools'
+    measurements, short) with the launch counts zeroed just before it.
+    Returns the four kernels' records."""
+    import torch
+    from eldorado_tpu_torch.ops import probes as P
+    from eldorado_tpu_torch.ops import step_kernel as K
+    from eldorado_tpu_torch.tools import (null_kernel, op_cost,
+                                          prefix_profile, step_cost)
+    static = (states.map_ids, states.min_xy, states.n_players,
+              states.max_steps)
+    n = c.shape[1]
+    fields_in = dict(carry_fields(c), srng=srng)
+
+    # K1-null: the carry and srng through, zero actions, dead untouched
+    outs = []
+    for fn in (K.fused_step, K.fused_step_plain):
+        dead = torch.full((1,), 7, dtype=torch.int64, device=dev)
+        c_out, r_out, a_out = fn(c, srng, *static, WIN_WINDOW, "storage",
+                                 False, dead, null_body=True)
+        outs.append(dict(carry_fields(c_out), srng=r_out, actions=a_out,
+                         dead=dead))
+    err_null = expect_equal("phase 6 (K1-null)", outs[0], outs[1])
+    expect_equal("phase 6 (K1-null is the identity)",
+                 {f: outs[0][f] for f in fields_in}, fields_in)
+    if bool(outs[0]["actions"].any()) or int(outs[0]["dead"]) != 7:
+        fail("phase 6: K1-null wrote actions or dead steps")
+    print(f"phase 6: K1-null == plain, {n} envs: every field and srng "
+          "unchanged, actions zero, dead untouched")
+
+    p1, p1_plain = P.null_copy(c), P.null_copy_plain(c)
+    err_p1 = max_err(p1, p1_plain)
+    if not (torch.equal(p1, p1_plain) and torch.equal(p1, c)):
+        fail(f"phase 6: P1 null copy differs (max abs err {err_p1})")
+    print(f"phase 6: P1 == plain: the ({c.shape[0]}, {c.shape[1]}) carry "
+          "copied word for word")
+
+    gen = np.random.default_rng(0)
+    err_p2 = 0.0
+    for shape in op_cost.SHAPES:
+        x, y = (torch.as_tensor(gen.integers(-2 ** 31, 2 ** 31, shape),
+                                dtype=torch.int32, device=dev)
+                for _ in range(2))
+        for op in P.OPS:
+            a, b = P.op_chain(x, y, OP_K, op), P.op_chain_plain(x, y, OP_K, op)
+            err_p2 = max(err_p2, max_err(a, b))
+            if not torch.equal(a, b):
+                fail(f"phase 6: P2 {op} at {shape} differs (max abs err "
+                     f"{max_err(a, b)})")
+    print(f"phase 6: P2 == plain at all {len(op_cost.SHAPES)} shapes, ops "
+          f"{'/'.join(P.OPS)}, k={OP_K}, full int32 range")
+
+    err_p3 = 0.0
+    for cut in P.CUTS:
+        a = P.step_prefix(c, srng, *static, PREFIX_STEPS, cut)
+        b = P.step_prefix_plain(c, srng, *static, PREFIX_STEPS, cut)
+        err_p3 = max(err_p3, max_err(a, b))
+        if not torch.equal(a, b):
+            fail(f"phase 6: P3 cut {cut} checksums differ in "
+                 f"{int((a != b).sum())} envs")
+    print(f"phase 6: P3 == plain at cuts {list(P.CUTS)}, {n} envs x "
+          f"{PREFIX_STEPS} steps: equal checksums")
+
+    # the probe path, with every count at 0 just before it
+    K.fused_step.launches = K.fused_step.null_launches = 0
+    for fn in (P.null_copy, P.op_chain, P.step_prefix):
+        fn.launches = 0
+    rows_k1 = step_cost.measure(c, srng, static, 50, 200, reps=2)
+    row_p1 = null_kernel.measure(c, 20, 80, reps=2)
+    rows_p2 = {(shape, op): op_cost.measure(shape, OP_K, op, 10, 40, reps=2)
+               for op in P.OPS for shape in op_cost.SHAPES}
+    rows_p3 = prefix_profile.measure(c, srng, static, 50, 200, reps=2)
+    counts = {"K1-null": K.fused_step.null_launches,
+              "P1": P.null_copy.launches, "P2": P.op_chain.launches,
+              "P3": P.step_prefix.launches}
+    if min(counts.values()) <= 0:
+        fail(f"phase 6: a probe kernel did not launch on its path: {counts}")
+    print(f"phase 6: probe path launches {counts} (and K1 "
+          f"{K.fused_step.launches})")
+    for line in step_cost.report(rows_k1, n):
+        print(f"  step_cost: {line}")
+    print(f"  null_kernel: {null_kernel.report(row_p1, c)}")
+    for (shape, op), row in rows_p2.items():
+        print(f"  op_cost {op}: {op_cost.report(shape, OP_K, row)}")
+    for line in prefix_profile.report(rows_p3):
+        print(f"  prefix_profile: {line}")
+    k1_step = rows_k1["full"].per
+    split = {name: rows_p3[cut].per - rows_p3[cut - 1].per
+             for cut, name in ((1, "sampling"), (2, "ball read"),
+                               (3, "step body"))}
+    print("phase 6: K1 per step {:.2f} us; P3 split of its cut-3 time: "
+          "{}".format(k1_step * 1e3, ", ".join(
+              f"{k} {v * 1e3:.2f} us ({100 * v / rows_p3[3].per:.0f}%)"
+              for k, v in split.items())))
+
+    # plain times beside the kernels' for the record
+    null_plain, _ = cuda_ms(lambda: K.fused_step_plain(
+        c, srng, *static, 1, null_body=True), reps=10)
+    p1_plain_ms, _ = cuda_ms(lambda: P.null_copy_plain(c), reps=10)
+    x32 = torch.ones((32, 512), dtype=torch.int32, device=dev)
+    p2_plain_ms, _ = cuda_ms(lambda: P.op_chain_plain(x32, x32, OP_K, "add"))
+    p3_plain_ms, _ = cuda_ms(lambda: P.step_prefix_plain(
+        c, srng, *static, PREFIX_STEPS, 3))
+    p2_row = rows_p2[((32, 512), "add")]
+    return [
+        {"name": "fused_step null_body (K1-null)", "route": "cuda",
+         "source": "eldorado_tpu_torch/csrc/step_kernel.cu",
+         "replaces": "eldorado_tpu/ops/step_kernel.py:624",
+         "launches": counts["K1-null"], "max_abs_err": err_null,
+         "ms": rows_k1["null"].per, "plain_ms": null_plain,
+         "per": f"launch at {n} envs"},
+        {"name": "null_copy (P1)", "route": "cuda",
+         "source": "eldorado_tpu_torch/csrc/probes.cu",
+         "replaces": "tools/tpu_null_kernel.py:105",
+         "launches": counts["P1"], "max_abs_err": err_p1,
+         "ms": row_p1.per, "plain_ms": p1_plain_ms,
+         "per": f"copy of the ({c.shape[0]}, {n}) carry"},
+        {"name": "op_chain (P2)", "route": "cuda",
+         "source": "eldorado_tpu_torch/csrc/probes.cu",
+         "replaces": "tools/tpu_op_cost.py:62",
+         "launches": counts["P2"], "max_abs_err": err_p2,
+         "ms": p2_row["calls"][OP_K].per, "plain_ms": p2_plain_ms,
+         "per": f"call of {OP_K} add ops on (32, 512)"},
+        {"name": "step_prefix (P3)", "route": "cuda",
+         "source": "eldorado_tpu_torch/csrc/probes.cu",
+         "replaces": "tools/tpu_prefix_profile.py:178",
+         "launches": counts["P3"], "max_abs_err": err_p3,
+         "ms": rows_p3[3].per, "plain_ms": p3_plain_ms / PREFIX_STEPS,
+         "per": f"step at cut 3, {n} envs"},
+    ]
 
 
 if __name__ == "__main__":

@@ -728,6 +728,14 @@ ED_HD void step_live(Env& s, const int act[5], const int ids[kBall],
   }
 }
 
+// steps_taken / info bookkeeping + INACTIVE -> MOVEMENT for the agent p of
+// a live env (src/environment.cpp:97-98,226-231; engine._step_pre)
+ED_HD void step_pre(Env& s, int p) {
+  s.info_steps[p] = wrap8(s.info_steps[p] + 1);
+  if (s.phase == 0) s.phase = 1;
+  s.steps_taken[p] = wrap8(s.steps_taken[p] + 1);
+}
+
 // One fused sample + step (engine.fused_sample_step) on env s, reading the
 // agent's ball from the env's (2304,) id plane ``map``.
 ED_HD void sample_step(Env& s, uint32_t& srng, const int* map, int mx,
@@ -738,16 +746,65 @@ ED_HD void sample_step(Env& s, uint32_t& srng, const int* map, int mx,
   int tainted = 0;
   sample_action(srng, mask, !(gate_dead && s.done), act, tainted);
   if (!s.done) {
-    // steps_taken / info bookkeeping + INACTIVE -> MOVEMENT
-    // (src/environment.cpp:97-98,226-231)
-    s.info_steps[p] = wrap8(s.info_steps[p] + 1);
-    if (s.phase == 0) s.phase = 1;
-    s.steps_taken[p] = wrap8(s.steps_taken[p] + 1);
+    step_pre(s, p);
     int ids[kBall];
     ball_ids(map, mx, my, s.xy[p][0], s.xy[p][1], ids);
     step_live(s, act, ids, n_players, max_steps);
   }
   s.tainted |= tainted;
+}
+
+// ---- P3: K1 cut at the boundaries of sample_step -------------------------
+// An empty asm that claims to change x: the compiler must recompute what
+// depends on x in every round instead of hoisting it out of the loop.
+#ifdef __CUDACC__
+#define ED_OPAQUE(x) asm volatile("mov.b32 %0, %0;" : "+r"(x))
+#else
+#define ED_OPAQUE(x) asm volatile("" : "+r"(x))
+#endif
+
+// The wrapping sum of the env's 570 carry words.
+ED_HD uint32_t env_word_sum(const Env& s) {
+  const char* src = reinterpret_cast<const char*>(&s);
+  uint32_t sum = 0;
+  for (int f = 0; f < kCarryWords; ++f) {
+    uint32_t v;
+    memcpy(&v, src + 4 * f, 4);
+    sum += v;
+  }
+  return sum;
+}
+
+// ``n_steps`` rounds of sample_step (storage mask, no gate_dead) cut after
+// stage kCut, and the checksum of what is live at the cut
+// (ops/probes.step_prefix_plain defines it): 0 stages the env only; 1 also
+// samples the five heads each round (sample_action); 2 also reads the
+// agent's 19 ball ids when the env is not done (ball_ids); 3 is the whole
+// sample_step, so the state advances. Below 3 only srng advances, and the
+// agent index is made opaque each round so the sampling and the ball read
+// stay inside the loop, as in K1.
+template <int kCut>
+ED_HD uint32_t step_prefix(Env& s, uint32_t& srng, const int* map, int mx,
+                           int my, int n_players, int max_steps,
+                           int n_steps) {
+  uint32_t chk = 0;
+  for (int t = 0; t < n_steps && kCut >= 1; ++t) {
+    int p = s.agent;
+    if (kCut < 3) ED_OPAQUE(p);
+    int act[5];
+    int tainted = 0;
+    sample_action(srng, s.storage[p], true, act, tainted);
+    for (int h = 0; h < 5; ++h) chk += (uint32_t)act[h];
+    if (kCut >= 2 && !s.done) {
+      if (kCut == 3) step_pre(s, p);
+      int ids[kBall];
+      ball_ids(map, mx, my, s.xy[p][0], s.xy[p][1], ids);
+      for (int k = 0; k < kBall; ++k) chk += (uint32_t)ids[k];
+      if (kCut == 3) step_live(s, act, ids, n_players, max_steps);
+    }
+    if (kCut == 3) s.tainted |= tainted;
+  }
+  return chk + env_word_sum(s) + srng;
 }
 
 // ---- reset -----------------------------------------------------------------

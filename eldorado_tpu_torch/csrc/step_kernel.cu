@@ -17,12 +17,19 @@
 // FLOPs. At 4096 envs a launch is 32 blocks of 128 threads, about one warp
 // per SM on the H100's 132 SMs, so occupancy is low; raising it is later
 // work (ROADMAP).
+//
+// K1-null (kNull = true) replaces make_fused_step(null_body=True)
+// (step_kernel.py:624-630): the same launch and the same staging of each
+// env through load_env / store_env, but no step, so the carry and srng come
+// out unchanged, the actions zero and `dead` untouched. It reads K1's
+// launch and state-staging floor; P1 (probes.cu) reads the bare copy rate.
 #include <cuda_runtime.h>
 
 #include "engine.cuh"
 
 namespace {
 
+template <bool kNull>
 __global__ void __launch_bounds__(128)
 fused_step_kernel(const int* __restrict__ carry_in, int* __restrict__ carry_out,
                   const int* __restrict__ srng_in, int* __restrict__ srng_out,
@@ -36,14 +43,17 @@ fused_step_kernel(const int* __restrict__ carry_in, int* __restrict__ carry_out,
   ed::Env s;
   ed::load_env(s, carry_in, n, e);
   uint32_t srng = (uint32_t)srng_in[e];
-  const int* map = map_ids + (size_t)e * ed::kMapCells;
-  const int mx = min_xy[2 * e], my = min_xy[2 * e + 1];
-  const int np = n_players[e], ms = max_steps[e];
   int act[5] = {0, 0, 0, 0, 0};
   unsigned long long n_dead = 0;
-  for (int t = 0; t < n_steps; ++t) {
-    n_dead += s.done;  // a step is dead when the env is done at entry
-    ed::sample_step(s, srng, map, mx, my, np, ms, mask_sel, gate_dead, act);
+  if constexpr (!kNull) {
+    const int* map = map_ids + (size_t)e * ed::kMapCells;
+    const int mx = min_xy[2 * e], my = min_xy[2 * e + 1];
+    const int np = n_players[e], ms = max_steps[e];
+    for (int t = 0; t < n_steps; ++t) {
+      n_dead += s.done;  // a step is dead when the env is done at entry
+      ed::sample_step(s, srng, map, mx, my, np, ms, mask_sel, gate_dead,
+                      act);
+    }
   }
   ed::store_env(s, carry_out, n, e);
   srng_out[e] = (int)srng;
@@ -58,11 +68,12 @@ extern "C" int ed_fused_step(const void* carry_in, void* carry_out,
                              const void* map_ids, const void* min_xy,
                              const void* n_players, const void* max_steps,
                              void* actions, void* dead, int n, int n_steps,
-                             int mask_sel, int gate_dead, void* stream) {
+                             int mask_sel, int gate_dead, int null_body,
+                             void* stream) {
   if (n <= 0) return 0;
   const int threads = 128;
-  fused_step_kernel<<<(n + threads - 1) / threads, threads, 0,
-                      (cudaStream_t)stream>>>(
+  auto kernel = null_body ? fused_step_kernel<true> : fused_step_kernel<false>;
+  kernel<<<(n + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
       (const int*)carry_in, (int*)carry_out, (const int*)srng_in,
       (int*)srng_out, (const int*)map_ids, (const int*)min_xy,
       (const int*)n_players, (const int*)max_steps, (int*)actions,

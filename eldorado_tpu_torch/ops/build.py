@@ -6,6 +6,10 @@ with a plain C interface (no PyTorch headers, so the build takes seconds):
 checkout (or, for an installed copy, under ``$XDG_CACHE_HOME`` or
 ``~/.cache``), named by a hash of the sources and flags, so an edited
 source rebuilds and concurrent processes never load a half-written file.
+Each source compiles in its own ``nvcc`` process, all started together,
+then one more links them. The compilers' output (``ptxas -v``: registers
+and stack frame of every kernel) is kept beside the library as
+``libeldorado_<hash>.log`` and read back when the library is already built.
 Each C entry takes raw device pointers and the CUDA stream as ``void*``
 and returns ``cudaGetLastError()``; `check` raises on anything but 0.
 """
@@ -22,21 +26,29 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("step_kernel.cu", "reset_kernel.cu")
+SOURCES = ("step_kernel.cu", "reset_kernel.cu", "probes.cu")
 HEADERS = ("rng.cuh", "engine.cuh")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
+                 "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entries: name -> argtypes (pointers and the stream as void*)
 _ENTRIES = {
     # carry_in, carry_out, srng_in, srng_out, map_ids, min_xy, n_players,
-    # max_steps, actions, dead, n, n_steps, mask_src_sel, gate_dead, stream
-    "ed_fused_step": [_P] * 10 + [_I] * 4 + [_P],
+    # max_steps, actions, dead, n, n_steps, mask_src_sel, gate_dead,
+    # null_body, stream
+    "ed_fused_step": [_P] * 10 + [_I] * 5 + [_P],
     # carry_in, carry_out, n_players, player_xy, req, nr, end, q, stream
     "ed_fused_reset": [_P] * 7 + [_I] + [_P],
+    # carry_in, carry_out, rows, n, stream
+    "ed_null_copy": [_P] * 2 + [_I] * 2 + [_P],
+    # x, y, out, count, k, sel, stream
+    "ed_op_chain": [_P] * 3 + [_I] * 3 + [_P],
+    # carry, srng, map_ids, min_xy, n_players, max_steps, out, n, n_steps,
+    # cut, stream
+    "ed_step_prefix": [_P] * 7 + [_I] * 3 + [_P],
 }
 
 
@@ -55,7 +67,8 @@ BUILD_DIR = _build_dir()
 
 class Library:
     """The loaded kernels: ``lib.fn`` for each C entry, plus the build's
-    wall time and the compiler's log (``ptxas -v`` register counts)."""
+    wall time (next to nothing when it was already built) and the
+    compilers' log (``ptxas -v`` register counts)."""
 
     def __init__(self, path: Path, seconds: float, log: str):
         self.path, self.seconds, self.log = path, seconds, log
@@ -79,28 +92,66 @@ def _nvcc() -> str:
     return str(path)
 
 
+def library_name() -> str:
+    """``libeldorado_<hash>.so``: a hash of the flags and the sources."""
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for name in HEADERS + SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return f"libeldorado_{h.hexdigest()[:16]}.so"
+
+
+def _compile(nvcc: str, lib: Path, log_path: Path) -> None:
+    """One nvcc per source, all at once, then the link; writes the library
+    and its log under their final names only when everything succeeded."""
+    with tempfile.TemporaryDirectory(dir=lib.parent) as tmp:
+        tmp = Path(tmp)
+        jobs = []
+        for src in SOURCES:
+            obj, out = tmp / f"{src}.o", tmp / f"{src}.log"
+            with open(out, "w") as fh:
+                proc = subprocess.Popen(
+                    [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj),
+                     str(CSRC / src)], stdout=fh, stderr=subprocess.STDOUT)
+            jobs.append((src, obj, out, proc))
+        log, failed = [], []
+        for src, _, out, proc in jobs:
+            rc = proc.wait()
+            log.append(f"== {src}\n{out.read_text()}")
+            if rc != 0:
+                failed.append(src)
+        log = "".join(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        so = tmp / lib.name
+        res = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(so),
+                              *(str(obj) for _, obj, _, _ in jobs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stdout}{res.stderr}")
+        (tmp / log_path.name).write_text(log)
+        os.replace(tmp / log_path.name, log_path)
+        os.replace(so, lib)
+
+
+def build(build_dir: Path) -> tuple[Path, float, str]:
+    """Compile the library into ``build_dir`` unless it is there already.
+    Returns (library path, build seconds, the compilers' log); on a cache
+    hit the log is read back from beside the library."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    lib = build_dir / library_name()
+    log_path = lib.with_suffix(".log")
+    t0 = time.perf_counter()
+    if not lib.exists():
+        _compile(_nvcc(), lib, log_path)
+    log = log_path.read_text() if log_path.exists() else ""
+    return lib, time.perf_counter() - t0, log
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> Library:
     """Compile (once per source hash) and load the kernel library."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in HEADERS + SOURCES:
-        h.update((CSRC / name).read_bytes())
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / f"libeldorado_{h.hexdigest()[:16]}.so"
-    t0 = time.perf_counter()
-    log = ""
-    if not lib.exists():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(str(CSRC / s) for s in SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-        os.replace(tmp, lib)
-    return Library(lib, time.perf_counter() - t0, log)
+    return Library(*build(BUILD_DIR))
 
 
 def check(err: int, name: str) -> None:

@@ -8,7 +8,8 @@ Each wrapper dispatches on the device of its tensors: CPU tensors take the
 plain torch version (`fused_step_plain`, `fused_reset_plain`, i.e. the
 vmapped single-env engine); CUDA tensors launch the hand-written kernel of
 ``csrc/`` or raise. There is no fallback between the two. Each wrapper
-counts its kernel launches in a plain int attribute, ``launches``.
+counts its kernel launches in a plain int attribute, ``launches`` (and
+``fused_step.null_launches`` for K1-null, K1's cost probe).
 """
 from __future__ import annotations
 
@@ -42,13 +43,18 @@ def _device_of(tensors):
 # ------------------------------------------------------------------- K1
 def fused_step_plain(carry, srng, map_ids, min_xy, n_players, max_steps,
                      n_steps: int, mask_src: str = "storage",
-                     gate_dead: bool = False, dead=None):
+                     gate_dead: bool = False, dead=None,
+                     null_body: bool = False):
     """Plain version of K1: ``n_steps`` sample+step rounds of
     `engine.fused_sample_step` on the carry. Adds the number of dead
     steps (env done at entry) to ``dead`` in place when given. Returns
-    (carry', srng', actions of the last step (n, 5))."""
-    dyn = E.unpack_dyn(carry)
+    (carry', srng', actions of the last step (n, 5)). With ``null_body``
+    (K1-null) it runs no step: copies of the carry and srng, zero actions,
+    ``dead`` untouched."""
     act = torch.zeros((carry.shape[1], 5), dtype=_i32, device=carry.device)
+    if null_body:
+        return carry.clone(), srng.clone(), act
+    dyn = E.unpack_dyn(carry)
     i_done = E.DYN_FIELDS.index("done")
     for _ in range(n_steps):
         if dead is not None:
@@ -60,14 +66,18 @@ def fused_step_plain(carry, srng, map_ids, min_xy, n_players, max_steps,
 
 def fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
                n_steps: int, mask_src: str = "storage",
-               gate_dead: bool = False, dead=None):
+               gate_dead: bool = False, dead=None, null_body: bool = False):
     """K1: ``n_steps`` fused sample+step rounds over every env in one
     launch (csrc/step_kernel.cu). ``carry`` (W, n) int32 dyn state,
     ``srng`` (n,) sampler engines, ``map_ids`` (n, 2304), ``min_xy``
     (n, 2), ``n_players``/``max_steps`` (n,), all int32; ``dead`` an
     optional (1,) int64 counter of dead steps, incremented in place.
     ``gate_dead`` freezes done envs' sampler streams. Returns new
-    (carry, srng, actions of the last step (n, 5))."""
+    (carry, srng, actions of the last step (n, 5)).
+
+    ``null_body`` launches K1-null instead, the cost probe of
+    make_fused_step(null_body=True): the same launch and per-env staging
+    with no step, counted in ``fused_step.null_launches``."""
     n = carry.shape[1]
     _check(carry, "carry", (E.CARRY_WORDS, n))
     _check(srng, "srng", (n,))
@@ -84,7 +94,8 @@ def fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
     dev = _device_of(args)
     if dev.type == "cpu":
         return fused_step_plain(carry, srng, map_ids, min_xy, n_players,
-                                max_steps, n_steps, mask_src, gate_dead, dead)
+                                max_steps, n_steps, mask_src, gate_dead, dead,
+                                null_body)
     lib = build.load()
     out = torch.empty_like(carry)
     srng_out = torch.empty_like(srng)
@@ -95,13 +106,18 @@ def fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
         srng_out.data_ptr(), map_ids.data_ptr(), min_xy.data_ptr(),
         n_players.data_ptr(), max_steps.data_ptr(), act.data_ptr(),
         dead.data_ptr() if dead is not None else None,
-        n, int(n_steps), _MASK_SRC[mask_src], int(gate_dead), stream)
+        n, int(n_steps), _MASK_SRC[mask_src], int(gate_dead),
+        int(null_body), stream)
     build.check(err, "fused_step")
-    fused_step.launches += 1
+    if null_body:
+        fused_step.null_launches += 1
+    else:
+        fused_step.launches += 1
     return out, srng_out, act
 
 
 fused_step.launches = 0
+fused_step.null_launches = 0
 
 
 # ------------------------------------------------------------------- K2

@@ -1,13 +1,16 @@
-"""The CUDA kernels K1 and K2 against their plain versions on the card.
+"""The CUDA kernels against their plain versions on the card: K1, K2 and
+K1's cost probes (K1-null, P1 null copy, P2 op chain, P3 step prefix).
 
 Marked ``cuda``: skipped where torch sees no GPU. On the machine with the
-card: ``python -m pytest tests/test_torch_cuda.py -q``.
+card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
+import numpy as np
 import pytest
 import torch
 
 import eldorado_tpu_torch as et
 from eldorado_tpu_torch.core import engine as TE
+from eldorado_tpu_torch.ops import probes as P
 from eldorado_tpu_torch.ops import step_kernel as K
 
 pytestmark = pytest.mark.cuda
@@ -57,3 +60,52 @@ def test_rollout_cuda_equals_cpu(dev):
     for f in TE.FIELDS:
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
     assert torch.equal(ra.cpu(), rb) and ca == cb and ca[0] > 0
+
+
+@pytest.fixture
+def probe_state(dev):
+    """256 envs 50 steps into 2-player games that end at 10 turns: some
+    are done, most are not."""
+    s = et.vec_reset(9, 256, 2, 1, 0, 10, device=dev)
+    static = (s.map_ids, s.min_xy, s.n_players, s.max_steps)
+    carry = TE.pack_dyn(TE.split_state(s)[1])
+    carry, r, _ = K.fused_step(carry, et.sampler_init(4, 256, device=dev),
+                               *static, 50)
+    done = TE.unpack_dyn(carry)[TE.DYN_FIELDS.index("done")]
+    assert 0 < int(done.sum()) < 256
+    return carry, r, static
+
+
+def test_null_body_equals_plain(dev, probe_state):
+    carry, r, static = probe_state
+    outs = []
+    for fn in (K.fused_step, K.fused_step_plain):
+        dead = torch.full((1,), 5, dtype=torch.int64, device=dev)
+        outs.append(fn(carry, r, *static, 100, "storage", False, dead,
+                       null_body=True) + (dead,))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert torch.equal(outs[0][0], carry) and torch.equal(outs[0][1], r)
+    assert int(outs[0][3]) == 5 and not bool(outs[0][2].any())
+
+
+def test_null_copy_equals_plain(dev, probe_state):
+    carry = probe_state[0]
+    for c in (carry, carry[:, :255].contiguous()):   # 16-byte and word path
+        assert torch.equal(P.null_copy(c), P.null_copy_plain(c))
+
+
+@pytest.mark.parametrize("op", P.OPS)
+@pytest.mark.parametrize("shape,k", [((8, 64), 64), ((32, 512), 4096)])
+def test_op_chain_equals_plain(dev, shape, k, op):
+    rng = np.random.default_rng(1)
+    x, y = (torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, shape),
+                            dtype=torch.int32, device=dev) for _ in range(2))
+    assert torch.equal(P.op_chain(x, y, k, op), P.op_chain_plain(x, y, k, op))
+
+
+@pytest.mark.parametrize("cut", P.CUTS)
+def test_step_prefix_equals_plain(dev, probe_state, cut):
+    carry, r, static = probe_state
+    assert torch.equal(P.step_prefix(carry, r, *static, 20, cut),
+                       P.step_prefix_plain(carry, r, *static, 20, cut))
