@@ -26,7 +26,17 @@ before the final line:
    copy), P2 (op chain, nine shapes, both ops, k=4096) and P3 (step
    prefix, cuts 0-3 over 8 steps) against their plain versions, then the
    probe path: the measurements of the four eldorado_tpu_torch.tools
-   modules at short step counts, printed as the tools print them.
+   modules at short step counts, printed as the tools print them;
+7. the learner feed (stream.py): (a) K1 with compact and with full
+   records against the records of phase 3's and phase 5's plain runs,
+   and K1's ms per step with and without records; (b) stream_rollout
+   (full records, ring) CUDA against CPU at 128 envs with resets, and an
+   ObsReconstructor driven by the CUDA feed against the CUDA final state;
+   (c) the feed at full width, timed, with the launch counts zeroed just
+   before it: from vec_reset(12345, 4096, 4, 3, EASY, 100000), 3 chunks
+   of 1500 steps through the compact ring, device delivery, the
+   compressed ring and exact mode, then one chunk of full records
+   through a small ring.
 
 The line before last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Nothing here imports jax.
@@ -44,6 +54,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 N_MAIN, CHUNK, N_CHUNKS = 4096, 1500, 3
 WIN_WINDOW = 200   # phase 5: K1 against plain over this many main-path steps
+FEED_N, FEED_STEPS, FEED_CHUNK = 128, 400, 100   # phase 7b
 PREFIX_STEPS = 8   # phase 6: P3 against plain over this many steps
 OP_K = 4096        # phase 6: P2's chain length
 
@@ -109,6 +120,7 @@ def main():
     from eldorado_tpu_torch.core.mapgen import generate_map
     from eldorado_tpu_torch.ops import build, rng as R
     from eldorado_tpu_torch.ops import step_kernel as K
+    from eldorado_tpu_torch import stream as S
     if "jax" in sys.modules:
         fail("jax was imported")
     dev = torch.device("cuda", 0)
@@ -188,6 +200,8 @@ def main():
     c3 = k2[:, :n3].contiguous()
     r3 = srng[:n3].contiguous()
     err_k1 = 0.0
+    # phase 7a: (what, K1's inputs, K1's outputs, the plain full records)
+    feed_checks = []
     for mask_src, gate in (("storage", False), ("sel", False),
                            ("storage", True)):
         c_in = c3.clone()
@@ -195,13 +209,19 @@ def main():
             done_row = [off for f, _, _, off, _ in E.DYN_LAYOUT
                         if f == "done"][0]
             c_in[done_row, ::7] = 1
+        inputs = (c_in, r3, st3["map_ids"], st3["min_xy"],
+                  st3["n_players"], st3["max_steps"], 64, mask_src, gate)
+        plain_rec = torch.empty((64, n3, S.RECORD_WORDS_FULL),
+                                dtype=torch.int32, device=dev)
         outs = []
-        for fn in (K.fused_step, K.fused_step_plain):
+        for fn, kw in ((K.fused_step, {}),
+                       (K.fused_step_plain,
+                        dict(record="full", records=plain_rec))):
             dead = torch.zeros(1, dtype=torch.int64, device=dev)
-            c, r, a = fn(c_in, r3, st3["map_ids"], st3["min_xy"],
-                         st3["n_players"], st3["max_steps"], 64, mask_src,
-                         gate, dead)
+            c, r, a = fn(*inputs, dead, **kw)
             outs.append(dict(carry_fields(c), srng=r, actions=a, dead=dead))
+        feed_checks.append((f"{n3} envs x 64 steps, mask {mask_src}, "
+                            f"gate_dead={gate}", inputs, outs[0], plain_rec))
         err_k1 = max(err_k1, expect_equal(
             f"phase 3 ({mask_src}, gate_dead={gate})", outs[0], outs[1]))
         print(f"phase 3: K1 == plain step, {n3} envs x 64 steps, "
@@ -272,14 +292,23 @@ def main():
             states.max_steps)
     if bool(states.done.any()):
         fail("phase 5: the window starts with done envs")
+    # the plain run also writes the window's full records (phase 7a), so
+    # its time includes packing them
+    win_rec = torch.empty((WIN_WINDOW, N_MAIN, S.RECORD_WORDS_FULL),
+                          dtype=torch.int32, device=dev)
     outs = []
-    for fn in (K.fused_step, K.fused_step_plain):
+    for fn, kw in ((K.fused_step, {}),
+                   (K.fused_step_plain, dict(record="full",
+                                             records=win_rec))):
         dead = torch.zeros(1, dtype=torch.int64, device=dev)
         ms, (c_out, r_out, a_out) = cuda_ms(
-            lambda: fn(*args, WIN_WINDOW, "storage", False, dead))
+            lambda: fn(*args, WIN_WINDOW, "storage", False, dead, **kw))
         outs.append((ms, dict(carry_fields(c_out), srng=r_out, actions=a_out,
                               dead=dead)))
     (_, k1_out), (ms_plain_window, plain_out) = outs
+    feed_checks.append((f"{N_MAIN} envs x {WIN_WINDOW} steps from the main "
+                        "path's carry", args + (WIN_WINDOW, "storage", False),
+                        k1_out, win_rec))
     plain1 = ms_plain_window / WIN_WINDOW   # plain step, ms per step
     err_k1 = max(err_k1, expect_equal("phase 5 (K1, main-path window)",
                                       k1_out, plain_out))
@@ -316,6 +345,7 @@ def main():
          "ms": ms_k2, "plain_ms": ms_plain2, "per": "128-env reset queue"},
     ]
     record["kernels"] += phase6(dev, c, srng, states)
+    record["kernels"] += phase7(dev, feed_checks, args, ms_k1 / CHUNK, plain1)
     if "jax" in sys.modules:
         fail("jax was imported")
     print(json.dumps(record))
@@ -455,6 +485,170 @@ def phase6(dev, c, srng, states):
          "ms": rows_p3[3].per, "plain_ms": p3_plain_ms / PREFIX_STEPS,
          "per": f"step at cut 3, {n} envs"},
     ]
+
+
+def phase7(dev, feed_checks, args, k1_ms, plain_ms):
+    """The learner feed: K1's record instantiations against the plain
+    records (a), the feed CUDA against CPU (b), the feed at full width
+    with the counts zeroed just before it (c). Returns the two record
+    instantiations' kernel records."""
+    import torch
+    import eldorado_tpu_torch as et
+    from eldorado_tpu_torch import stream as S
+    from eldorado_tpu_torch.core import engine as E
+    from eldorado_tpu_torch.native import TrajectoryRing
+    from eldorado_tpu_torch.ops import step_kernel as K
+
+    # ---- a: K1's records against the plain version's ----------------
+    err = {r: 0.0 for r in S.RECORD_WIDTH}
+    for what, inputs, k1_out, plain_rec in feed_checks:
+        T, n = plain_rec.shape[:2]
+        for record, words in S.RECORD_WIDTH.items():
+            recs = torch.full((T, n, words), -1, dtype=torch.int32,
+                              device=dev)
+            dead = torch.zeros(1, dtype=torch.int64, device=dev)
+            c, r, a = K.fused_step(*inputs, dead, record=record, records=recs)
+            want = plain_rec[..., :words]
+            err[record] = max(err[record], max_err(recs, want))
+            if not torch.equal(recs, want):
+                bad = (recs != want).any(-1).nonzero()[:5].tolist()
+                fail(f"phase 7a: K1 {record} records differ from plain, "
+                     f"{what}: (step, env) {bad}")
+            expect_equal(f"phase 7a ({record}, {what}): K1 with records vs "
+                         "without", dict(carry_fields(c), srng=r, actions=a,
+                                         dead=dead), k1_out)
+        done = int(((plain_rec[..., 0] >> 25) & 1).sum())
+        print(f"phase 7a: K1 compact and full records == plain, {what}: "
+              f"every word, {done} done records; carry, srng, actions and "
+              "dead steps as without records")
+    ms_rec = {}
+    for record, words in S.RECORD_WIDTH.items():
+        buf = torch.empty((CHUNK, N_MAIN, words), dtype=torch.int32,
+                          device=dev)
+        ms, _ = cuda_ms(lambda: K.fused_step(*args, CHUNK, record=record,
+                                             records=buf))
+        ms_rec[record] = ms / CHUNK
+        del buf
+    print(f"phase 7a: K1 ms per step at {N_MAIN} envs: no records "
+          f"{k1_ms:.4f}, compact {ms_rec['compact']:.4f}, full "
+          f"{ms_rec['full']:.4f} (one {CHUNK}-step launch each)")
+
+    # ---- b: the feed, CUDA against CPU --------------------------------
+    res = []
+    for d in (dev, torch.device("cpu")):
+        blocks = []
+        s = et.vec_reset(7, FEED_N, 4, 3, 0, 60, device=d)
+        out = S.stream_rollout(s, et.sampler_init(8, FEED_N, device=d),
+                               FEED_STEPS, FEED_CHUNK, steps_per_push=50,
+                               record="full",
+                               consume=lambda b: blocks.append(b.copy()))
+        res.append((s, out, np.concatenate(blocks)))
+    (s0, (s_gpu, r_gpu, ep_gpu, c_gpu), rec_gpu), \
+        (_, (s_cpu, r_cpu, ep_cpu, c_cpu), rec_cpu) = res
+    if not np.array_equal(rec_gpu, rec_cpu):
+        fail("phase 7b: the feed's records differ between CUDA and CPU")
+    if ep_gpu != ep_cpu or ep_gpu <= 0 or not c_gpu.keyframes:
+        fail(f"phase 7b: episodes {ep_gpu} (cuda) vs {ep_cpu} (cpu), "
+             f"{len(c_gpu.keyframes)} keyframes")
+    if [k for k, _ in c_gpu.keyframes] != [k for k, _ in c_cpu.keyframes] \
+            or not all(np.array_equal(a, b) for (_, a), (_, b)
+                       in zip(c_gpu.keyframes, c_cpu.keyframes)):
+        fail("phase 7b: the keyframes differ between CUDA and CPU")
+    expect_equal("phase 7b", dict({f: getattr(s_gpu, f) for f in E.FIELDS},
+                                  srng=r_gpu),
+                 dict({f: getattr(s_cpu, f) for f in E.FIELDS}, srng=r_cpu))
+    recon = S.ObsReconstructor(s0, c_gpu.q_cap)
+    kf = dict(c_gpu.keyframes)
+    for t in range(FEED_STEPS):
+        recon.apply_step(rec_gpu[t])
+        if t % FEED_CHUNK == FEED_CHUNK - 1 and t // FEED_CHUNK in kf:
+            recon.apply_reset(kf[t // FEED_CHUNK])
+    for mine, theirs in (("piles", "piles"), ("shop", "shop_stock"),
+                         ("storage", "storage_masks"), ("sel", "sel_mask"),
+                         ("map_ids", "map_ids"), ("min_xy", "min_xy"),
+                         ("agent", "agent"), ("phase", "phase"),
+                         ("resources", "resources"), ("done", "done")):
+        want = getattr(s_gpu, theirs).cpu().numpy()
+        if not np.array_equal(getattr(recon, mine), want.astype(
+                getattr(recon, mine).dtype)):
+            fail(f"phase 7b: ObsReconstructor's {mine} differs from the "
+                 "CUDA final state")
+    print(f"phase 7b: stream_rollout(record='full') {FEED_N} envs x "
+          f"{FEED_STEPS} steps, CUDA == CPU: every record word, "
+          f"{len(c_gpu.keyframes)} keyframes, every field and srng; episodes "
+          f"{ep_gpu}; the ObsReconstructor fed by the CUDA feed == the CUDA "
+          "final state on all 10 mirrored fields")
+
+    # ---- c: the feed at full width ------------------------------------
+    states = et.vec_reset(12345, N_MAIN, 4, 3, 0, 100000, device=dev)
+    srng = et.sampler_init(42, N_MAIN, device=dev)
+    steps = CHUNK * N_CHUNKS
+    K.fused_step.launches = K.fused_reset.launches = 0
+    K.fused_step.record_launches = {r: 0 for r in S.RECORD_WIDTH}
+    rows = {}
+
+    def timed(name, T, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = S.stream_rollout(states, srng, T, CHUNK, **kw)
+        torch.cuda.synchronize()
+        rows[name] = (time.perf_counter() - t0, out)
+        return out
+
+    ring_out = timed("compact ring", steps)
+    dev_out = timed("device", steps, deliver="device")
+    comp_out = timed("compressed ring", steps, compress=True)
+    exact_out = timed("exact, compact ring", steps, exact=True)
+    small = TrajectoryRing(100 * N_MAIN * S.RECORD_WORDS_FULL * 4, 8)
+    full_out = timed("full records, small ring", CHUNK, record="full",
+                     ring=small)
+    counts = dict(K.fused_step.record_launches, K2=K.fused_reset.launches)
+    if min(counts.values()) <= 0:
+        fail(f"phase 7c: a kernel of the feed did not launch: {counts}")
+    want = {"compact ring": N_MAIN * steps, "compressed ring": N_MAIN * steps,
+            "exact, compact ring": N_MAIN * steps,
+            "full records, small ring": N_MAIN * CHUNK}
+    for name, n_rec in want.items():
+        got = rows[name][1][3].records
+        if got != n_rec:
+            fail(f"phase 7c: {name}: the consumer counted {got} records, "
+                 f"not {n_rec}")
+    if comp_out[3].checksum != ring_out[3].checksum:
+        fail("phase 7c: the compressed ring delivered other records than "
+             "the compact ring")
+    d_steps, _, _, hist = dev_out[3]
+    if int(d_steps) != N_MAIN * steps or int(hist.sum()) != 5 * N_MAIN * steps:
+        fail(f"phase 7c: device delivery folded {int(d_steps)} env-steps")
+    if ring_out[2] != dev_out[2] or ring_out[2] != comp_out[2]:
+        fail(f"phase 7c: episodes differ between deliveries: "
+             f"{ring_out[2]}, {dev_out[2]}, {comp_out[2]}")
+    for name, (wall, out) in rows.items():
+        T = CHUNK if name.startswith("full") else steps
+        line = (f"phase 7c: {name}: {N_MAIN * T / wall:.0f} delivered "
+                f"env-steps/s ({wall:.3f} s, {N_MAIN} envs x {T} steps), "
+                f"episodes {out[2]}")
+        if name != "device":
+            line += f", consumer counted {out[3].records} records"
+        if name.startswith("compressed"):
+            line += (f", {out[3].tunnel_bytes / out[3].records:.3f} bytes "
+                     f"per record crossed to the host (raw "
+                     f"{4 * S.RECORD_WORDS})")
+        if name.startswith("exact"):
+            live = N_MAIN * T - out[4]
+            line += (f", dead steps {out[4]}, {live / wall:.0f} live "
+                     "env-steps/s")
+        print(line)
+    print(f"phase 7c: feed path launches K1 compact {counts['compact']}, "
+          f"K1 full {counts['full']}, K2 {counts['K2']}")
+    return [
+        {"name": f"fused_step record={record} (K1 + feed)", "route": "cuda",
+         "source": "eldorado_tpu_torch/csrc/step_kernel.cu",
+         "replaces": "eldorado_tpu/ops/step_kernel.py:556",
+         "launches": counts[record], "max_abs_err": err[record],
+         "ms": ms_rec[record], "plain_ms": plain_ms,
+         "per": f"env-step batch of {N_MAIN} with "
+                f"{S.RECORD_WIDTH[record]}-word records"}
+        for record in S.RECORD_WIDTH]
 
 
 if __name__ == "__main__":

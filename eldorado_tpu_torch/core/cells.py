@@ -9,6 +9,7 @@ elementwise over any leading batch shape and runs on the tensors' device.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..constants import GRIDSIZE
@@ -82,3 +83,18 @@ def ids_from_obs(obs):
     nr = torch.where(present, reqch, torch.zeros_like(reqch)).amax(-1)
     ids = cell_type_ids(req, nr, cell[..., 6])
     return ids.reshape(ids.shape[:-2] + (GRIDSIZE * GRIDSIZE,))
+
+
+def expand_obs_np(ids):
+    """Numpy `expand_obs` for host-side consumers (the feed's
+    ObsReconstructor): (n, 2304) id planes -> (n, 48, 48, 7) u8."""
+    ids = np.asarray(ids).reshape(-1, GRIDSIZE * GRIDSIZE).astype(np.int64)
+    trip = np.asarray(_CELL_TRIPLES, np.int64)          # (NT, 3)
+    req, nr, end = trip[ids, 0], trip[ids, 1], trip[ids, 2]
+    out = np.zeros(ids.shape + (7,), np.uint8)
+    filled = req < 5
+    np.put_along_axis(out, np.where(filled, req + 1, 0)[..., None],
+                      np.where(filled, nr, 0)[..., None].astype(np.uint8),
+                      axis=-1)
+    out[..., 6] = end
+    return out.reshape(out.shape[0], GRIDSIZE, GRIDSIZE, 7)

@@ -16,6 +16,7 @@
 // static_asserts below tie them to this struct.
 #pragma once
 
+#include <math.h>
 #include <stddef.h>
 #include <string.h>
 
@@ -752,6 +753,72 @@ ED_HD void sample_step(Env& s, uint32_t& srng, const int* map, int mx,
     step_live(s, act, ids, n_players, max_steps);
   }
   s.tainted |= tainted;
+}
+
+// ---- learner-feed records (stream.pack_step / pack_step_full) ---------
+// kRecordCompact or kRecordFull int32 words of the post-step state of env
+// s, after a step that sampled ``act`` with p_pre the agent at its entry
+// (the actor). Layout: stream.py's module docstring. jnp.round and
+// torch.round round half to even, as rintf does in the default rounding
+// mode.
+constexpr int kRecordCompact = 5;
+constexpr int kRecordFull = 40;
+
+ED_HD int round_even(float x) { return (int)rintf(x); }
+
+ED_HD int clamp_int(int x, int lo, int hi) {
+  return x < lo ? lo : x > hi ? hi : x;
+}
+
+template <int kWords>
+ED_HD void write_record(const Env& s, const int act[5], int p_pre, int* rec) {
+  static_assert(kWords == kRecordCompact || kWords == kRecordFull, "width");
+  uint32_t w0 = ((uint32_t)s.done << 25) | ((uint32_t)s.agent << 26)
+                | ((uint32_t)s.phase << 28);
+  for (int h = 0; h < 5; ++h) w0 |= (uint32_t)act[h] << (5 * h);
+  uint32_t w1 = 0;
+  for (int i = 0; i < 4; ++i)  // 4-bit two's complement
+    w1 |= ((uint32_t)round_even(s.rewards[i]) & 0xFu) << (4 * i);
+  const int mach = round_even(s.res[0]), padd = round_even(s.res[1]);
+  const int coin2 = round_even(s.res[2] * 2.0f);
+  w1 |= ((uint32_t)clamp_int(mach, 0, 7) << 16)
+        | ((uint32_t)clamp_int(padd, 0, 7) << 19)
+        | ((uint32_t)clamp_int(coin2, 0, 1023) << 22);
+  rec[0] = (int)w0;
+  rec[1] = (int)w1;
+  for (int j = 0; j < 3; ++j) rec[2 + j] = (int)s.sel[j];
+  if constexpr (kWords == kRecordFull) {
+    // the actor's 105 pile counts, one full u8 each, 4 to a word
+    const int* pp = &s.piles[p_pre][0][0];
+    for (int w = 0; w < 27; ++w) {
+      uint32_t v = 0;
+      for (int k = 0; k < 4; ++k) {
+        const int j = 4 * w + k;
+        if (j < 5 * kCards) v |= ((uint32_t)pp[j] & 255u) << (8 * k);
+      }
+      rec[5 + w] = (int)v;
+    }
+    uint32_t w32 = 0;
+    int max_stock = s.shop_stock[0];
+    for (int k = 0; k < kShop; ++k)
+      max_stock = s.shop_stock[k] > max_stock ? s.shop_stock[k] : max_stock;
+    for (int k = 0; k < 16; ++k)
+      w32 |= ((uint32_t)s.shop_stock[k] & 3u) << (2 * k);
+    const bool over_r = mach > 31 || padd > 31 || coin2 > 4095;
+    const uint32_t w33 =
+        ((uint32_t)s.shop_stock[16] & 3u) | (((uint32_t)s.shop_stock[17] & 3u) << 2)
+        | ((uint32_t)p_pre << 4) | ((uint32_t)(max_stock > 3) << 7)
+        | ((uint32_t)clamp_int(mach, 0, 31) << 8)
+        | ((uint32_t)clamp_int(padd, 0, 31) << 13)
+        | ((uint32_t)clamp_int(coin2, 0, 4095) << 18)
+        | ((uint32_t)over_r << 30);
+    rec[32] = (int)w32;
+    rec[33] = (int)w33;
+    for (int j = 0; j < 3; ++j) {
+      rec[34 + j] = (int)s.storage[p_pre][j];
+      rec[37 + j] = (int)s.storage[s.agent][j];
+    }
+  }
 }
 
 // ---- P3: K1 cut at the boundaries of sample_step -------------------------

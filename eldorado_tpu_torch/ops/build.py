@@ -26,8 +26,9 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("step_kernel.cu", "reset_kernel.cu", "probes.cu")
-HEADERS = ("rng.cuh", "engine.cuh")
+SOURCES = ("step_kernel.cu", "step_compact.cu", "step_full.cu",
+           "reset_kernel.cu", "probes.cu")
+HEADERS = ("rng.cuh", "engine.cuh", "step_kernel.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
                  "-fPIC", "-Xptxas=-v")
@@ -37,9 +38,9 @@ _I = ctypes.c_int
 # C entries: name -> argtypes (pointers and the stream as void*)
 _ENTRIES = {
     # carry_in, carry_out, srng_in, srng_out, map_ids, min_xy, n_players,
-    # max_steps, actions, dead, n, n_steps, mask_src_sel, gate_dead,
-    # null_body, stream
-    "ed_fused_step": [_P] * 10 + [_I] * 5 + [_P],
+    # max_steps, actions, dead, records, n, n_steps, mask_src_sel,
+    # gate_dead, null_body, record_words, stream
+    "ed_fused_step": [_P] * 11 + [_I] * 6 + [_P],
     # carry_in, carry_out, n_players, player_xy, req, nr, end, q, stream
     "ed_fused_reset": [_P] * 7 + [_I] + [_P],
     # carry_in, carry_out, rows, n, stream

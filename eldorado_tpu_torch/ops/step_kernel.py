@@ -9,12 +9,15 @@ plain torch version (`fused_step_plain`, `fused_reset_plain`, i.e. the
 vmapped single-env engine); CUDA tensors launch the hand-written kernel of
 ``csrc/`` or raise. There is no fallback between the two. Each wrapper
 counts its kernel launches in a plain int attribute, ``launches`` (and
-``fused_step.null_launches`` for K1-null, K1's cost probe).
+``fused_step.null_launches`` for K1-null, K1's cost probe;
+``fused_step.record_launches[record]`` for the launches that also wrote the
+learner feed's records, which ``launches`` counts too).
 """
 from __future__ import annotations
 
 import torch
 
+from .. import stream as S
 from ..core import engine as E
 from . import build
 
@@ -41,32 +44,54 @@ def _device_of(tensors):
 
 
 # ------------------------------------------------------------------- K1
+_I = {f: i for i, f in enumerate(E.DYN_FIELDS)}
+_RECORD_SEL = {None: 0, **S.RECORD_WIDTH}
+
+
+def _pack_records(dyn, act, p_pre, record):
+    """The plain version of what K1 writes per step: the post-step
+    records of ``dyn`` (env-major DYN fields), (n, W)."""
+    def f(name):
+        return dyn[_I[name]]
+    rec = S.pack_step(act, f("done"), f("rewards"), f("agent"),
+                      f("sel_mask"), f("resources"), f("phase"))
+    if record == "full":
+        rec = S.pack_step_full(rec, f("piles"), f("shop_stock"),
+                               f("storage_masks"), f("resources"), p_pre,
+                               f("agent"))
+    return rec
+
+
 def fused_step_plain(carry, srng, map_ids, min_xy, n_players, max_steps,
                      n_steps: int, mask_src: str = "storage",
                      gate_dead: bool = False, dead=None,
-                     null_body: bool = False):
+                     null_body: bool = False, record=None, records=None):
     """Plain version of K1: ``n_steps`` sample+step rounds of
     `engine.fused_sample_step` on the carry. Adds the number of dead
-    steps (env done at entry) to ``dead`` in place when given. Returns
-    (carry', srng', actions of the last step (n, 5)). With ``null_body``
-    (K1-null) it runs no step: copies of the carry and srng, zero actions,
-    ``dead`` untouched."""
+    steps (env done at entry) to ``dead`` in place when given, and with
+    ``record`` writes step t's records into ``records[t]`` (`stream.pack_step`
+    / `stream.pack_step_full`). Returns (carry', srng', actions of the last
+    step (n, 5)). With ``null_body`` (K1-null) it runs no step: copies of
+    the carry and srng, zero actions, ``dead`` untouched."""
     act = torch.zeros((carry.shape[1], 5), dtype=_i32, device=carry.device)
     if null_body:
         return carry.clone(), srng.clone(), act
     dyn = E.unpack_dyn(carry)
-    i_done = E.DYN_FIELDS.index("done")
-    for _ in range(n_steps):
+    for t in range(n_steps):
         if dead is not None:
-            dead += dyn[i_done].sum()
+            dead += dyn[_I["done"]].sum()
+        p_pre = dyn[_I["agent"]]
         dyn, srng, act = E.vstep(dyn, srng, map_ids, min_xy, n_players,
                                  max_steps, mask_src, gate_dead)
+        if record is not None:
+            records[t] = _pack_records(dyn, act, p_pre, record)
     return E.pack_dyn(dyn), srng, act
 
 
 def fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
                n_steps: int, mask_src: str = "storage",
-               gate_dead: bool = False, dead=None, null_body: bool = False):
+               gate_dead: bool = False, dead=None, null_body: bool = False,
+               record=None, records=None):
     """K1: ``n_steps`` fused sample+step rounds over every env in one
     launch (csrc/step_kernel.cu). ``carry`` (W, n) int32 dyn state,
     ``srng`` (n,) sampler engines, ``map_ids`` (n, 2304), ``min_xy``
@@ -74,6 +99,11 @@ def fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
     optional (1,) int64 counter of dead steps, incremented in place.
     ``gate_dead`` freezes done envs' sampler streams. Returns new
     (carry, srng, actions of the last step (n, 5)).
+
+    ``record`` ("compact" or "full") also writes the learner feed: step
+    t's post-step record of env e into ``records[t, e]``, a caller-given
+    (n_steps, n, `stream.RECORD_WIDTH[record]`) int32 tensor (the layout
+    of stream.py's module docstring).
 
     ``null_body`` launches K1-null instead, the cost probe of
     make_fused_step(null_body=True): the same launch and per-env staging
@@ -91,11 +121,21 @@ def fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
     if dead is not None:
         _check(dead, "dead", (1,), torch.int64)
         args.append(dead)
+    if record not in _RECORD_SEL:
+        raise ValueError(f"record must be None, 'compact' or 'full', "
+                         f"not {record!r}")
+    if record is not None:
+        if null_body:
+            raise ValueError("K1-null writes no records")
+        if records is None:
+            raise ValueError(f"record={record!r} needs a records tensor")
+        _check(records, "records", (n_steps, n, _RECORD_SEL[record]))
+        args.append(records)
     dev = _device_of(args)
     if dev.type == "cpu":
         return fused_step_plain(carry, srng, map_ids, min_xy, n_players,
                                 max_steps, n_steps, mask_src, gate_dead, dead,
-                                null_body)
+                                null_body, record, records)
     lib = build.load()
     out = torch.empty_like(carry)
     srng_out = torch.empty_like(srng)
@@ -106,18 +146,22 @@ def fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
         srng_out.data_ptr(), map_ids.data_ptr(), min_xy.data_ptr(),
         n_players.data_ptr(), max_steps.data_ptr(), act.data_ptr(),
         dead.data_ptr() if dead is not None else None,
+        records.data_ptr() if record is not None else None,
         n, int(n_steps), _MASK_SRC[mask_src], int(gate_dead),
-        int(null_body), stream)
+        int(null_body), _RECORD_SEL[record], stream)
     build.check(err, "fused_step")
     if null_body:
         fused_step.null_launches += 1
     else:
         fused_step.launches += 1
+        if record is not None:
+            fused_step.record_launches[record] += 1
     return out, srng_out, act
 
 
 fused_step.launches = 0
 fused_step.null_launches = 0
+fused_step.record_launches = {"compact": 0, "full": 0}
 
 
 # ------------------------------------------------------------------- K2

@@ -15,6 +15,7 @@ from .core import engine as E
 from .errors import GenerateMapFailure, MapCapacityError
 from .ops import rng as R
 from .ops.step_kernel import fused_reset, fused_step
+from .stream import RECORD_WIDTH
 
 __all__ = ["vec_reset", "vec_reset_varied", "sampler_init",
            "check_map_generation", "rollout_chunked"]
@@ -49,27 +50,57 @@ def check_map_generation(states):
     return states
 
 
-def _reset_columns(carry, static, idx, queue_flags: bool):
+def _q_cap(n: int) -> int:
+    """Reset-queue capacity per chunk boundary (the JAX package's Q)."""
+    return min(n, 1024, max(128, n // 32))
+
+
+def _reset_columns(carry, static, idx, queue_flags: bool, q_cap=None):
     """cog_env::reset for the envs ``idx`` of a carry: map generation from
     each env's engine state, then K2 on their gathered columns. Writes the
     carry columns and the map fields of ``static`` (a dict, in place).
     With ``queue_flags`` every reset env records the whole queue's ok /
     overflow outcome, as the JAX package's reset queue does
     (vec.py:_apply_q); otherwise each env records its own. Returns the
-    queue's (ok, overflow) as device bools."""
+    queue's (ok, overflow) as device bools and, with ``q_cap``, its
+    keyframe (`_keyframe`; else None)."""
     cols = carry[:, idx]
     n_players = static["n_players"][idx]
     gen, pxy, (req, nr, end) = E.reset_map_prelude(
         cols[_OFF["rng"]], static["n_pieces"][idx],
         static["difficulty"][idx], n_players)
-    carry[:, idx] = fused_reset(cols.contiguous(), n_players, pxy, req, nr,
-                                end)
+    new = fused_reset(cols.contiguous(), n_players, pxy, req, nr, end)
+    carry[:, idx] = new
     ok, over = gen.ok.all(), gen.overflow.any()
     static["map_ids"][idx] = gen.ids
     static["min_xy"][idx] = gen.min_xy
     static["map_ok"][idx] = ok if queue_flags else gen.ok
     static["map_overflow"][idx] = over if queue_flags else gen.overflow
-    return ok, over
+    frame = (None if q_cap is None else
+             _keyframe(idx, ok, over, gen, new, q_cap, carry.shape[1]))
+    return ok, over, frame
+
+
+def _keyframe(idx, ok, over, gen, cols, q_cap, n):
+    """One reset queue's result as one int32 buffer, in the layout of the
+    JAX package's reset-queue result (vec.py:_reset_q): [idxs (Q), ok,
+    overflow, min_xy (Q, 2), map ids (Q, 2304), then each DYN field as
+    (Q, size) in DYN_LAYOUT order], f32 as bits, bools as 0/1. Padding
+    slots have idx = n and zeros elsewhere."""
+    k, dev = idx.numel(), cols.device
+
+    def slots(x, width):
+        out = torch.zeros((q_cap, width), dtype=_i32, device=dev)
+        out[:k] = x.reshape(k, width)
+        return out.reshape(-1)
+
+    idxs = torch.full((q_cap,), n, dtype=_i32, device=dev)
+    idxs[:k] = idx
+    parts = [idxs, ok.to(_i32)[None], over.to(_i32)[None],
+             slots(gen.min_xy, 2), slots(gen.ids, E.GRIDSIZE * E.GRIDSIZE)]
+    parts += [slots(cols[off:off + size].t(), size)
+              for _, _, _, off, size in E.DYN_LAYOUT]
+    return torch.cat(parts)
 
 
 def _reset_all(states: E.EnvState) -> E.EnvState:
@@ -124,10 +155,29 @@ def rollout_chunked(states, sampler_rngs, n_steps: int, chunk: int = 100,
     continuous same-step auto-reset trajectory
     (include/vec_environment.h:53-61). Returns (states, srngs, episodes),
     plus dead_steps when ``exact``."""
+    states, srng, episodes, dead, _ = _rollout_chunks(
+        states, sampler_rngs, max(1, n_steps // chunk), chunk, mask_src,
+        exact)
+    if exact:
+        return states, srng, episodes, dead
+    return states, srng, episodes
+
+
+def _rollout_chunks(states, sampler_rngs, n_chunks: int, chunk: int,
+                    mask_src: str, exact: bool, record=None, on_chunk=None,
+                    keyframes: bool = False):
+    """The chunk loop of `rollout_chunked` and `stream.stream_rollout`.
+
+    With ``record`` ("compact" or "full") K1 writes each chunk's records
+    into one of two (chunk, n, W) device buffers, alternating, and
+    ``on_chunk(ci, records)`` is called right after chunk ci's K1 launch,
+    before that boundary's reset queue (so the caller may read chunk ci-1's
+    buffer while the card runs chunk ci). With ``keyframes`` every
+    boundary that reset envs gives ``(ci, keyframe)`` (`_keyframe`).
+    Returns (states, srng, episodes, dead_steps, keyframes)."""
     dev = states.rng.device
     n = states.rng.shape[0]
-    q_cap = min(n, 1024, max(128, n // 32))
-    n_chunks = max(1, n_steps // chunk)
+    q_cap = _q_cap(n)
     static = {f: getattr(states, f).clone() for f in E.STATIC_FIELDS}
     carry = E.pack_dyn(E.split_state(states)[1])
     srng = sampler_rngs.to(_i32).contiguous()
@@ -136,11 +186,17 @@ def rollout_chunked(states, sampler_rngs, n_steps: int, chunk: int = 100,
     failed = torch.zeros((), dtype=torch.bool, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     env_ids = torch.arange(n, device=dev)
-    for _ in range(n_chunks):
+    bufs = ([torch.empty((chunk, n, RECORD_WIDTH[record]), dtype=_i32,
+                         device=dev) for _ in range(2)] if record else None)
+    frames = []
+    for ci in range(n_chunks):
+        recs = bufs[ci % 2] if record else None
         carry, srng, _ = fused_step(
             carry, srng, static["map_ids"], static["min_xy"],
             static["n_players"], static["max_steps"], chunk, mask_src,
-            gate_dead=exact, dead=dead)
+            gate_dead=exact, dead=dead, record=record, records=recs)
+        if on_chunk is not None:
+            on_chunk(ci, recs)
         # sync mode resets every queued env at the boundary that queued
         # it, so the JAX path's in-flight mask is empty here: every done
         # env is newly done
@@ -149,8 +205,11 @@ def rollout_chunked(states, sampler_rngs, n_steps: int, chunk: int = 100,
         idx = torch.sort(key).values[:q_cap]
         count = int((idx < n).sum())
         if count:
-            ok, over = _reset_columns(carry, static, idx[:count],
-                                      queue_flags=True)
+            ok, over, frame = _reset_columns(
+                carry, static, idx[:count], queue_flags=True,
+                q_cap=q_cap if keyframes else None)
+            if frame is not None:
+                frames.append((ci, frame))
             episodes += count
             failed |= ~ok
             overflow |= over
@@ -170,6 +229,4 @@ def rollout_chunked(states, sampler_rngs, n_steps: int, chunk: int = 100,
                            E.unpack_dyn(carry))
     if left.numel():
         check_map_generation(states)
-    if exact:
-        return states, srng, int(episodes), int(dead)
-    return states, srng, int(episodes)
+    return states, srng, int(episodes), int(dead), frames

@@ -1,5 +1,6 @@
-"""The CUDA kernels against their plain versions on the card: K1, K2 and
-K1's cost probes (K1-null, P1 null copy, P2 op chain, P3 step prefix).
+"""The CUDA kernels against their plain versions on the card: K1 (with and
+without the learner feed's records), K2 and K1's cost probes (K1-null, P1
+null copy, P2 op chain, P3 step prefix); and the feed, CUDA against CPU.
 
 Marked ``cuda``: skipped where torch sees no GPU. On the machine with the
 card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -9,6 +10,7 @@ import pytest
 import torch
 
 import eldorado_tpu_torch as et
+from eldorado_tpu_torch import stream as S
 from eldorado_tpu_torch.core import engine as TE
 from eldorado_tpu_torch.ops import probes as P
 from eldorado_tpu_torch.ops import step_kernel as K
@@ -39,6 +41,60 @@ def test_fused_step_equals_plain(dev, mask_src, gate_dead):
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     assert int(outs[0][3]) > 0   # max_steps=10: envs finish and dead-step
+
+
+@pytest.mark.parametrize("mask_src,gate_dead",
+                         [("storage", False), ("sel", False),
+                          ("storage", True)])
+def test_fused_step_records_equal_plain(dev, mask_src, gate_dead):
+    """K1's compact and full records == the plain version's, and the
+    carry, srng, actions and dead steps are those of K1 without records."""
+    T, n = 100, 256
+    s = et.vec_reset(9, n, 2, 1, 0, 10, device=dev)
+    args = (TE.pack_dyn(TE.split_state(s)[1]), et.sampler_init(4, n,
+                                                               device=dev),
+            s.map_ids, s.min_xy, s.n_players, s.max_steps, T, mask_src,
+            gate_dead)
+    dead = torch.zeros(1, dtype=torch.int64, device=dev)
+    want = K.fused_step(*args, dead) + (dead,)
+    plain = torch.zeros((T, n, S.RECORD_WORDS_FULL), dtype=torch.int32,
+                        device=dev)
+    K.fused_step_plain(*args, record="full", records=plain)
+    for record, words in S.RECORD_WIDTH.items():
+        recs = torch.full((T, n, words), -1, dtype=torch.int32, device=dev)
+        dead = torch.zeros(1, dtype=torch.int64, device=dev)
+        got = K.fused_step(*args, dead, record=record, records=recs)
+        assert torch.equal(recs, plain[..., :words]), record
+        for a, b in zip(got + (dead,), want):
+            assert torch.equal(a, b), record
+    if mask_src == "storage":   # envs ended, so the dead-step records ran
+        assert bool(((plain[..., 0] >> 25) & 1).any())
+
+
+def test_stream_cuda_equals_cpu(dev):
+    """stream_rollout(record="full") over the ring, and on-device
+    delivery, at 64 envs with mid-run resets: records, keyframes,
+    episodes, final states and the stats carry equal on both devices."""
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        blocks = []
+        s = et.vec_reset(5, 64, 4, 1, 0, 30, device=d)
+        r = et.sampler_init(11, 64, device=d)
+        ring = S.stream_rollout(s, r, 200, 50, steps_per_push=25,
+                                record="full",
+                                consume=lambda b: blocks.append(b.copy()))
+        device = S.stream_rollout(s, r, 200, 50, deliver="device")
+        outs.append((ring, np.concatenate(blocks), device))
+    ((sa, ra, ea, ca), reca, da), ((sb, rb, eb, cb), recb, db) = outs
+    assert np.array_equal(reca, recb) and ea == eb > 0
+    assert [k for k, _ in ca.keyframes] == [k for k, _ in cb.keyframes]
+    for (_, x), (_, y) in zip(ca.keyframes, cb.keyframes):
+        assert np.array_equal(x, y)
+    for f in TE.FIELDS:
+        assert torch.equal(getattr(sa, f).cpu(), getattr(sb, f)), f
+    assert torch.equal(ra.cpu(), rb)
+    for x, y in zip(da[3], db[3]):
+        assert torch.equal(x.cpu(), y)
 
 
 def test_fused_reset_equals_plain(dev):
