@@ -21,7 +21,9 @@ before the final line:
    max_steps=100000) and rollout_chunked over 3 chunks of 1500 steps
    (and once with exact=True), timed; then K1 against its plain version
    on the 4096-env mid-game carry over a 200-step window in which games
-   end by a win; kernel times beside their plain versions;
+   end by a win; kernel times beside their plain versions and bounds;
+   K1's launch shape (threads, blocks, shared bytes per block, blocks
+   resident per SM) and its ms per step at 8192 and 16384 envs;
 6. K1's cost probes on the carry phase 5 leaves: K1-null, P1 (null
    copy), P2 (op chain, nine shapes, both ops, k=4096) and P3 (step
    prefix, cuts 0-3 over 8 steps) against their plain versions, then the
@@ -37,6 +39,22 @@ before the final line:
    of 1500 steps through the compact ring, device delivery, the
    compressed ring and exact mode, then one chunk of full records
    through a small ring.
+
+Every kernel's record carries its bound: the least time the card could
+take for the same work, the larger of the bytes it must move over HBM's
+3.35 TB/s and the time its instructions need on the units that execute
+them, at 1.98 GHz (the clock of the data sheet's peak rates) on every SM:
+integer instructions on the SM's 64 int32 lanes, loads and stores on its
+32 load/store units, and all of them through its 4 x 32 issue slots,
+whichever takes longest. The instructions of K1, K1-null, K2 and P3 are
+counted by kind by a profiling build run on the timed inputs
+(eldorado_tpu_torch/tools/inst_count.py: PTX instructions per thread;
+phase 5 sets K1's static SASS count beside its PTX count); P1 does no
+arithmetic; P2's are its k ops per element. P1 and K1-null are timed
+with the L2 evicted before each launch, so that their bytes come from
+HBM as their bound assumes. For P1 it also times one PyTorch call that
+computes the same function (``dst.copy_(src)``), the same way; no single
+call computes the others.
 
 The line before last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Nothing here imports jax.
@@ -57,6 +75,12 @@ WIN_WINDOW = 200   # phase 5: K1 against plain over this many main-path steps
 FEED_N, FEED_STEPS, FEED_CHUNK = 128, 400, 100   # phase 7b
 PREFIX_STEPS = 8   # phase 6: P3 against plain over this many steps
 OP_K = 4096        # phase 6: P2's chain length
+WIDE = (8192, 16384)   # phase 5: K1's ms per step at these env counts
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM (NVIDIA data sheet)
+CLOCK_HZ = 1.98e9             # the clock of the data sheet's peak rates
+# instructions per SM per clock: int32 lanes, load/store units, and the
+# issue slots of its 4 schedulers (every kind)
+INT_PER_SM, MEM_PER_SM, ISSUE_PER_SM = 64, 32, 128
 
 
 def fail(msg: str):
@@ -93,6 +117,50 @@ def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def bound(n_bytes: float, ops=None) -> tuple:
+    """(the least ms the card could take for work that moves ``n_bytes``
+    and executes the instructions ``ops`` counts by kind, "bytes" or
+    "operations", whichever sets it)."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops = ops or {"int": 0, "mem": 0, "other": 0}
+    clocks = max(ops["int"] / INT_PER_SM, ops["mem"] / MEM_PER_SM,
+                 sum(ops.values()) / ISSUE_PER_SM)
+    t_ops = clocks / (sms * CLOCK_HZ) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def per_kind(ops: dict, units: float) -> str:
+    """``ops`` (instructions by kind) per unit of work, for a line."""
+    return ", ".join(f"{k} {v / units:.0f}" for k, v in ops.items())
+
+
+def k1_bytes(n: int, steps: int, live: int, words: int = 0) -> int:
+    """The bytes one K1 launch must move: each env's carry column in and
+    out, srng in and out, its last actions out and its four per-env inputs
+    in; the ball cells its live steps read, each map plane at most once;
+    and the records out."""
+    from eldorado_tpu_torch.core import engine as E
+    ball = min(live * E.N_BALL * 4, n * E.GRIDSIZE * E.GRIDSIZE * 4)
+    return n * (2 * E.CARRY_WORDS * 4 + 8 + 20 + 16) + ball \
+        + steps * n * words * 4
+
+
+def k1_bound(c, srng, static, steps: int, dead: int, record=None) -> tuple:
+    """K1's bound per step for ``steps`` steps from carry ``c`` (``dead``
+    of them dead steps), and its PTX instructions per env-step, in all
+    and by kind."""
+    from eldorado_tpu_torch import stream as S
+    from eldorado_tpu_torch.tools import inst_count as IC
+    n = c.shape[1]
+    words = 0 if record is None else S.RECORD_WIDTH[record]
+    ops = IC.count_k1(c, srng, static, steps, record=record)
+    ms, by = bound(k1_bytes(n, steps, n * steps - dead, words), ops)
+    return (ms / steps, by, sum(ops.values()) / (n * steps),
+            per_kind(ops, n * steps))
+
+
 def cuda_ms(fn, reps: int = 1):
     import torch
     start = torch.cuda.Event(enable_timing=True)
@@ -121,6 +189,7 @@ def main():
     from eldorado_tpu_torch.ops import build, rng as R
     from eldorado_tpu_torch.ops import step_kernel as K
     from eldorado_tpu_torch import stream as S
+    from eldorado_tpu_torch.tools import _timing, inst_count as IC, step_cost
     if "jax" in sys.modules:
         fail("jax was imported")
     dev = torch.device("cuda", 0)
@@ -137,6 +206,10 @@ def main():
     print(smi)
     lib = build.load()
     print(f"phase 0: kernels built in {lib.seconds:.1f} s -> {lib.path.name}")
+    t_ptx = time.perf_counter()
+    IC.build_ptx()
+    print(f"phase 0: the profiling build's PTX in "
+          f"{time.perf_counter() - t_ptx:.1f} s")
     for line in lib.log.splitlines():
         if line.startswith("== ") or any(
                 k in line for k in ("entry function", "registers",
@@ -319,7 +392,9 @@ def main():
     print(f"phase 5: K1 == plain step, {N_MAIN} envs x {WIN_WINDOW} steps "
           f"from the main path's carry: every field, srng, actions, dead "
           f"steps {int(k1_out['dead'])}; {wins} games ended by a win")
-    ms_k1, _ = cuda_ms(lambda: K.fused_step(*args, CHUNK))
+    dead_t = torch.zeros(1, dtype=torch.int64, device=dev)
+    ms_k1, _ = cuda_ms(lambda: K.fused_step(*args, CHUNK, "storage", False,
+                                            dead_t))
     ms_k2, _ = cuda_ms(lambda: K.fused_reset(*q_args), reps=20)
     ms_plain2, _ = cuda_ms(lambda: K.fused_reset_plain(*q_args), reps=2)
     print(f"phase 5: K1 {ms_k1 / CHUNK:.4f} ms/step ({ms_k1:.2f} ms per "
@@ -331,18 +406,58 @@ def main():
     print(f"phase 5: K1 launches are {100 * k1_share:.1f}% of the timed "
           f"main path; the rest is the chunk-boundary resets (mapgen, "
           f"prelude, K2, queue)")
+    # the bounds, on the timed launches' own inputs
+    bound_k1, by_k1, ips, kinds = k1_bound(c, srng, args[2:], CHUNK,
+                                           int(dead_t))
+    print(f"phase 5: K1 bound {bound_k1:.6f} ms/step ({by_k1}; {ips:.0f} "
+          f"PTX instructions per env-step: {kinds}; {int(dead_t)} dead "
+          f"steps in the launch): K1 takes "
+          f"{ms_k1 / CHUNK / bound_k1:.1f}x its bound")
+    k1_entry = IC.K1_ENTRY.format(null=0, rec=0)
+    sass = IC.sass_counts(k1_entry)
+    ptx = IC.counter(IC.K1_SOURCE[0], k1_entry).static
+    print("phase 5: K1's static instructions, SASS / PTX: all "
+          f"{sum(sass.values())} / {sum(ptx.values())} = "
+          f"{sum(sass.values()) / sum(ptx.values()):.3f}; " + ", ".join(
+              f"{k} {sass[k]} / {ptx[k]}" for k in IC.KINDS))
+    q = q_args[0].shape[1]
+    bound_k2, by_k2 = bound(
+        q * (2 * E.CARRY_WORDS * 4 + 4 + 32 + 3 * 4 * E.N_BALL * 4),
+        IC.count_k2(*q_args))
+    print(f"phase 5: K2 bound {bound_k2:.6f} ms per {q}-env queue "
+          f"({by_k2}): K2 takes {ms_k2 / bound_k2:.1f}x its bound")
+    for n_envs in (N_MAIN,) + WIDE:
+        shape = K.fused_step_shape(n_envs)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        print(f"phase 5: K1 launch at {n_envs} envs: {shape['threads']} "
+              f"threads x {shape['blocks']} blocks, {shape['smem_bytes']} "
+              f"B of shared memory per block, {shape['blocks_per_sm']} "
+              f"blocks resident per SM "
+              f"({min(shape['blocks'], sms * shape['blocks_per_sm'])} of "
+              f"{shape['blocks']} at once on {sms} SMs)")
+    for n_envs in WIDE:   # on the tools' state, steps 50 to 200 of a game
+        wc, ws, wst = _timing.inputs(n_envs, dev)
+        row = step_cost.measure(wc, ws, wst, 50, 200, reps=2)["full"]
+        print(f"phase 5: K1 at {n_envs} envs, the tools' state from "
+              f"vec_reset(123), steps 50-200: {row.per:.4f} ms/step "
+              f"({n_envs / row.per / 1e3:.0f}M env-steps/s inside K1)")
+        del wc, ws, wst
+    torch.cuda.empty_cache()
     record["kernels"] = [
         {"name": "fused_step (K1)", "route": "cuda",
          "source": "eldorado_tpu_torch/csrc/step_kernel.cu",
          "replaces": "eldorado_tpu/ops/step_kernel.py:556",
          "launches": launches["K1"], "max_abs_err": err_k1,
-         "ms": ms_k1 / CHUNK, "plain_ms": plain1,
+         "ms": ms_k1 / CHUNK, "plain_ms": plain1, "bound_ms": bound_k1,
+         "bound_by": by_k1, "library_ms": None,
          "per": f"env-step batch of {N_MAIN}"},
         {"name": "fused_reset (K2)", "route": "cuda",
          "source": "eldorado_tpu_torch/csrc/reset_kernel.cu",
          "replaces": "eldorado_tpu/ops/step_kernel.py:420",
          "launches": launches["K2"], "max_abs_err": err_k2,
-         "ms": ms_k2, "plain_ms": ms_plain2, "per": "128-env reset queue"},
+         "ms": ms_k2, "plain_ms": ms_plain2, "bound_ms": bound_k2,
+         "bound_by": by_k2, "library_ms": None,
+         "per": "128-env reset queue"},
     ]
     record["kernels"] += phase6(dev, c, srng, states)
     record["kernels"] += phase7(dev, feed_checks, args, ms_k1 / CHUNK, plain1)
@@ -360,8 +475,10 @@ def phase6(dev, c, srng, states):
     measurements, short) with the launch counts zeroed just before it.
     Returns the four kernels' records."""
     import torch
+    from eldorado_tpu_torch.core import engine as E
     from eldorado_tpu_torch.ops import probes as P
     from eldorado_tpu_torch.ops import step_kernel as K
+    from eldorado_tpu_torch.tools import _timing, inst_count as IC
     from eldorado_tpu_torch.tools import (null_kernel, op_cost,
                                           prefix_profile, step_cost)
     static = (states.map_ids, states.min_xy, states.n_players,
@@ -453,36 +570,66 @@ def phase6(dev, c, srng, states):
     # plain times beside the kernels' for the record
     null_plain, _ = cuda_ms(lambda: K.fused_step_plain(
         c, srng, *static, 1, null_body=True), reps=10)
-    p1_plain_ms, _ = cuda_ms(lambda: P.null_copy_plain(c), reps=10)
+    p1_plain_ms = _timing.cold(lambda: P.null_copy_plain(c), 20, 80,
+                               reps=2).per
     x32 = torch.ones((32, 512), dtype=torch.int32, device=dev)
     p2_plain_ms, _ = cuda_ms(lambda: P.op_chain_plain(x32, x32, OP_K, "add"))
     p3_plain_ms, _ = cuda_ms(lambda: P.step_prefix_plain(
         c, srng, *static, PREFIX_STEPS, 3))
     p2_row = rows_p2[((32, 512), "add")]
+    # one PyTorch call that computes P1's function, on the same carry,
+    # timed as P1 is
+    dst = torch.empty_like(c)
+    p1_lib_ms = _timing.cold(lambda: dst.copy_(c), 20, 80, reps=2).per
+    # the bounds: K1-null stages each env in and out; P1 copies the carry;
+    # P2 is count x k int32 ops, two loads and a store; P3's per-step work
+    # from its counted instructions at two step counts
+    carry_bytes = 2 * E.CARRY_WORDS * 4 * n
+    b_null = bound(carry_bytes + n * (8 + 20),
+                   IC.count_k1(c, srng, static, 1, null_body=True))
+    b_p1 = bound(carry_bytes)
+    b_p2 = bound(3 * 4 * 32 * 512,
+                 {"int": 32 * 512 * OP_K, "mem": 3 * 32 * 512, "other": 0})
+    p3_200, p3_50 = (IC.count_p3(c, srng, static, s, 3) for s in (200, 50))
+    b_p3 = bound(n * E.N_BALL * 4,
+                 {k: (p3_200[k] - p3_50[k]) / 150 for k in IC.KINDS})
+    for name, ms, (b, by) in (("K1-null", rows_k1["null"].per, b_null),
+                              ("P1", row_p1.per, b_p1),
+                              ("P2", p2_row["calls"][OP_K].per, b_p2),
+                              ("P3 cut 3, per step", rows_p3[3].per, b_p3)):
+        print(f"phase 6: {name} bound {b:.6f} ms ({by}): takes "
+              f"{ms / b:.2f}x its bound")
+    print(f"phase 6: P1's library call dst.copy_(carry) {p1_lib_ms:.5f} ms, "
+          f"plain (clone) {p1_plain_ms:.5f} ms, P1 {row_p1.per:.5f} ms, "
+          "each with the L2 evicted before every launch")
     return [
         {"name": "fused_step null_body (K1-null)", "route": "cuda",
          "source": "eldorado_tpu_torch/csrc/step_kernel.cu",
          "replaces": "eldorado_tpu/ops/step_kernel.py:624",
          "launches": counts["K1-null"], "max_abs_err": err_null,
          "ms": rows_k1["null"].per, "plain_ms": null_plain,
+         "bound_ms": b_null[0], "bound_by": b_null[1], "library_ms": None,
          "per": f"launch at {n} envs"},
         {"name": "null_copy (P1)", "route": "cuda",
          "source": "eldorado_tpu_torch/csrc/probes.cu",
          "replaces": "tools/tpu_null_kernel.py:105",
          "launches": counts["P1"], "max_abs_err": err_p1,
          "ms": row_p1.per, "plain_ms": p1_plain_ms,
+         "bound_ms": b_p1[0], "bound_by": b_p1[1], "library_ms": p1_lib_ms,
          "per": f"copy of the ({c.shape[0]}, {n}) carry"},
         {"name": "op_chain (P2)", "route": "cuda",
          "source": "eldorado_tpu_torch/csrc/probes.cu",
          "replaces": "tools/tpu_op_cost.py:62",
          "launches": counts["P2"], "max_abs_err": err_p2,
          "ms": p2_row["calls"][OP_K].per, "plain_ms": p2_plain_ms,
+         "bound_ms": b_p2[0], "bound_by": b_p2[1], "library_ms": None,
          "per": f"call of {OP_K} add ops on (32, 512)"},
         {"name": "step_prefix (P3)", "route": "cuda",
          "source": "eldorado_tpu_torch/csrc/probes.cu",
          "replaces": "tools/tpu_prefix_profile.py:178",
          "launches": counts["P3"], "max_abs_err": err_p3,
          "ms": rows_p3[3].per, "plain_ms": p3_plain_ms / PREFIX_STEPS,
+         "bound_ms": b_p3[0], "bound_by": b_p3[1], "library_ms": None,
          "per": f"step at cut 3, {n} envs"},
     ]
 
@@ -521,14 +668,23 @@ def phase7(dev, feed_checks, args, k1_ms, plain_ms):
         print(f"phase 7a: K1 compact and full records == plain, {what}: "
               f"every word, {done} done records; carry, srng, actions and "
               "dead steps as without records")
-    ms_rec = {}
+    ms_rec, bound_rec = {}, {}
     for record, words in S.RECORD_WIDTH.items():
         buf = torch.empty((CHUNK, N_MAIN, words), dtype=torch.int32,
                           device=dev)
-        ms, _ = cuda_ms(lambda: K.fused_step(*args, CHUNK, record=record,
+        dead = torch.zeros(1, dtype=torch.int64, device=dev)
+        ms, _ = cuda_ms(lambda: K.fused_step(*args, CHUNK, "storage", False,
+                                             dead, record=record,
                                              records=buf))
         ms_rec[record] = ms / CHUNK
         del buf
+        bound_rec[record] = k1_bound(args[0], args[1], args[2:], CHUNK,
+                                     int(dead), record)
+        print(f"phase 7a: K1 {record} records: bound "
+              f"{bound_rec[record][0]:.6f} ms/step ({bound_rec[record][1]}; "
+              f"{bound_rec[record][2]:.0f} PTX instructions per env-step: "
+              f"{bound_rec[record][3]}): takes "
+              f"{ms_rec[record] / bound_rec[record][0]:.1f}x its bound")
     print(f"phase 7a: K1 ms per step at {N_MAIN} envs: no records "
           f"{k1_ms:.4f}, compact {ms_rec['compact']:.4f}, full "
           f"{ms_rec['full']:.4f} (one {CHUNK}-step launch each)")
@@ -642,10 +798,12 @@ def phase7(dev, feed_checks, args, k1_ms, plain_ms):
           f"K1 full {counts['full']}, K2 {counts['K2']}")
     return [
         {"name": f"fused_step record={record} (K1 + feed)", "route": "cuda",
-         "source": "eldorado_tpu_torch/csrc/step_kernel.cu",
+         "source": f"eldorado_tpu_torch/csrc/step_{record}.cu",
          "replaces": "eldorado_tpu/ops/step_kernel.py:556",
          "launches": counts[record], "max_abs_err": err[record],
          "ms": ms_rec[record], "plain_ms": plain_ms,
+         "bound_ms": bound_rec[record][0], "bound_by": bound_rec[record][1],
+         "library_ms": None,
          "per": f"env-step batch of {N_MAIN} with "
                 f"{S.RECORD_WIDTH[record]}-word records"}
         for record in S.RECORD_WIDTH]

@@ -384,10 +384,10 @@ def _sel_card_bits(sel_w, idx, play_bit, special_bit, remove_bit=None):
 
 
 def make_state(seeds, n_players=4, n_pieces=3, difficulty=0,
-               max_steps=100000, device=None) -> EnvState:
-    """Freshly constructed envs (batched over ``seeds``; each parameter is
-    a scalar or a per-env sequence): zeroed buffers, ActionMask
-    constructors, engine i seeded with seeds[i]."""
+               max_steps=100000, device="cuda") -> EnvState:
+    """Freshly constructed envs on ``device`` (batched over ``seeds``; each
+    parameter is a scalar or a per-env sequence): zeroed buffers,
+    ActionMask constructors, engine i seeded with seeds[i]."""
     rng = R.seed(seeds, device=device)
     n = rng.shape[0]
     device = rng.device

@@ -13,7 +13,9 @@
 // env-minor carry of eldorado_tpu_torch/core/engine.py (pack_dyn): word f
 // of env e lives at carry[f * n + e]. The OFF_* constants are that layout
 // (tests/test_torch_tables.py holds them to engine.DYN_LAYOUT) and the
-// static_asserts below tie them to this struct.
+// static_asserts below tie them to this struct. The kernels keep each
+// env's `Env` in an `EnvSlot` of shared memory, padded to an odd number of
+// words (step_kernel.cuh says why).
 #pragma once
 
 #include <math.h>
@@ -128,6 +130,18 @@ static_assert(offsetof(Env, w3) == 4 * OFF_W3_CACHE, "carry layout");
 static_assert(offsetof(Env, rewards) == 4 * OFF_REWARDS, "carry layout");
 static_assert(offsetof(Env, info_returns) == 4 * OFF_INFO_RETURNS, "layout");
 static_assert(offsetof(Env, tainted) == 4 * OFF_RNG_TAINTED, "carry layout");
+
+// One env's slot in a block's shared memory: the Env, then one pad word,
+// so that consecutive slots start kSlotWords words apart. kSlotWords is
+// odd, so word f of the 32 slots of a warp lies in 32 different banks.
+constexpr int kSlotWords = kCarryWords + 1;
+struct EnvSlot {
+  Env env;
+  int pad;
+};
+static_assert(kSlotWords % 2 == 1, "an odd stride spreads a warp's banks");
+static_assert(sizeof(EnvSlot) == 4 * kSlotWords, "slot stride");
+static_assert(offsetof(EnvSlot, env) == 0, "the slot keeps Env's offsets");
 
 // The column of env e: word f at carry[f * n + e] (coalesced per warp).
 ED_HD void load_env(Env& s, const int* carry, int n, int e) {
@@ -250,81 +264,35 @@ ED_HD void obs_mask(uint32_t m[3], int phase, const int mv[6],
 }
 
 // ---- the current player's view ----------------------------------------
+// The acting player's fields and the shared step mutables, as references
+// into the Env (engine.PView): the step reads and writes the state where
+// it lives, with no per-step copy in or out.
 struct View {
-  int pile[5][kCards];  // draw, hand, active, played, discard
-  int n_in_hand, n_active, n_in_draw, idx_last;
-  int xy[2];
-  uint32_t storage[3];
-  int has_won, mip, ncf, nmf, n_removes, n_movements, n_added;
-  uint32_t sel[3];
-  float res[3];
-  int phase;
-  int shop_stock[kShop], in_market[kShop], n_in_market;
-  uint32_t rng;
-  int tainted;
+  int (&pile)[5][kCards];  // draw, hand, active, played, discard
+  int &n_in_hand, &n_active, &n_in_draw, &idx_last;
+  int (&xy)[2];
+  uint32_t (&storage)[3];
+  int &has_won, &mip, &ncf, &nmf, &n_removes, &n_movements, &n_added;
+  uint32_t (&sel)[3];
+  float (&res)[3];
+  int &phase;
+  int (&shop_stock)[kShop];
+  int (&in_market)[kShop];
+  int &n_in_market;
+  uint32_t &rng;
+  int &tainted;
 };
 constexpr int DRAW = 0, HAND = 1, ACTIVE = 2, PLAYED = 3, DISCARD = 4;
 
-ED_HD void load_view(const Env& s, int p, View& v) {
-  for (int r = 0; r < 5; ++r)
-    for (int c = 0; c < kCards; ++c) v.pile[r][c] = s.piles[p][r][c];
-  v.n_in_hand = s.n_in_hand[p];
-  v.n_active = s.n_active[p];
-  v.n_in_draw = s.n_in_draw[p];
-  v.idx_last = s.idx_last[p];
-  v.xy[0] = s.xy[p][0];
-  v.xy[1] = s.xy[p][1];
-  for (int j = 0; j < 3; ++j) {
-    v.storage[j] = s.storage[p][j];
-    v.sel[j] = s.sel[j];
-    v.res[j] = s.res[j];
-  }
-  v.has_won = s.has_won[p];
-  v.mip = s.mip[p];
-  v.ncf = s.ncf[p];
-  v.nmf = s.nmf[p];
-  v.n_removes = s.n_removes[p];
-  v.n_movements = s.n_movements[p];
-  v.n_added = s.n_added[p];
-  v.phase = s.phase;
-  for (int i = 0; i < kShop; ++i) {
-    v.shop_stock[i] = s.shop_stock[i];
-    v.in_market[i] = s.in_market[i];
-  }
-  v.n_in_market = s.n_in_market;
-  v.rng = s.rng;
-  v.tainted = s.tainted;
-}
-
-ED_HD void store_view(Env& s, int p, const View& v) {
-  for (int r = 0; r < 5; ++r)
-    for (int c = 0; c < kCards; ++c) s.piles[p][r][c] = v.pile[r][c];
-  s.n_in_hand[p] = v.n_in_hand;
-  s.n_active[p] = v.n_active;
-  s.n_in_draw[p] = v.n_in_draw;
-  s.idx_last[p] = v.idx_last;
-  s.xy[p][0] = v.xy[0];
-  s.xy[p][1] = v.xy[1];
-  for (int j = 0; j < 3; ++j) {
-    s.storage[p][j] = v.storage[j];
-    s.sel[j] = v.sel[j];
-    s.res[j] = v.res[j];
-  }
-  s.has_won[p] = v.has_won;
-  s.mip[p] = v.mip;
-  s.ncf[p] = v.ncf;
-  s.nmf[p] = v.nmf;
-  s.n_removes[p] = v.n_removes;
-  s.n_movements[p] = v.n_movements;
-  s.n_added[p] = v.n_added;
-  s.phase = v.phase;
-  for (int i = 0; i < kShop; ++i) {
-    s.shop_stock[i] = v.shop_stock[i];
-    s.in_market[i] = v.in_market[i];
-  }
-  s.n_in_market = v.n_in_market;
-  s.rng = v.rng;
-  s.tainted = v.tainted;
+ED_HD View view_of(Env& s, int p) {
+  return View{s.piles[p],     s.n_in_hand[p],   s.n_active[p],
+              s.n_in_draw[p], s.idx_last[p],    s.xy[p],
+              s.storage[p],   s.has_won[p],     s.mip[p],
+              s.ncf[p],       s.nmf[p],         s.n_removes[p],
+              s.n_movements[p], s.n_added[p],   s.sel,
+              s.res,          s.phase,          s.shop_stock,
+              s.in_market,    s.n_in_market,    s.rng,
+              s.tainted};
 }
 
 // ---- deck ----------------------------------------------------------------
@@ -563,8 +531,10 @@ ED_HD void step_live(Env& s, const int act[5], const int ids[kBall],
   const bool b_move = a_play == 0 && a_sp == 0 && a_mv > 0;
   const bool b_else = a_play == 0 && a_sp == 0 && a_mv == 0;
 
-  View v;
-  load_view(s, p, v);
+  // v is player p's part of s: every write through v is a write to s.
+  // Below, s is read only at the next player q != p (the rotation), never
+  // at a field v has changed.
+  View v = view_of(s, p);
   if (b_play) {  // src/environment.cpp:104-108, src/player.cpp:47-69
     int idx = a_play - 1 < kCards - 1 ? a_play - 1 : kCards - 1;
     float mov[3];
@@ -702,7 +672,6 @@ ED_HD void step_live(Env& s, const int act[5], const int ids[kBall],
   const int r = rotate ? q : p;
   if (rotate)
     for (int j = 0; j < 3; ++j) v.storage[j] = saved[j];
-  store_view(s, p, v);
   for (int j = 0; j < 3; ++j) s.storage[r][j] = rotate ? mask_r[j] : v.storage[j];
   s.agent = r;
   s.turn_counter += rotate;
@@ -821,6 +790,29 @@ ED_HD void write_record(const Env& s, const int act[5], int p_pre, int* rec) {
   }
 }
 
+// ---- K1's work for one env over one launch ---------------------------
+// ``n_steps`` fused steps of env s; with kRecord > 0, after step t its
+// record at rec + t * rec_stride. Returns the dead steps (the env done at
+// entry). The kernel runs this on the env's shared-memory slot, the host
+// harness of tests/test_torch_engine_host.py on a host array of slots.
+template <int kRecord>
+ED_HD unsigned long long run_steps(Env& s, uint32_t& srng, const int* map,
+                                   int mx, int my, int n_players,
+                                   int max_steps, int mask_sel,
+                                   int gate_dead, int n_steps, int act[5],
+                                   int* rec, size_t rec_stride) {
+  unsigned long long n_dead = 0;
+  for (int t = 0; t < n_steps; ++t) {
+    n_dead += s.done;  // a step is dead when the env is done at entry
+    const int p_pre = s.agent;
+    sample_step(s, srng, map, mx, my, n_players, max_steps, mask_sel,
+                gate_dead, act);
+    if constexpr (kRecord > 0)
+      write_record<kRecord>(s, act, p_pre, rec + (size_t)t * rec_stride);
+  }
+  return n_dead;
+}
+
 // ---- P3: K1 cut at the boundaries of sample_step -------------------------
 // An empty asm that claims to change x: the compiler must recompute what
 // depends on x in every round instead of hoisting it out of the loop.
@@ -887,10 +879,8 @@ ED_HD void player_reset(Env& s, int p) {
   s.n_in_draw[p] = s.n_in_hand[p] = s.n_active[p] = 0;
   null_heads(s.sel, PLAY0, 66);  // ActionMask::reset
   for (int j = 0; j < 3; ++j) s.sel[j] |= null_word(j);
-  View v;
-  load_view(s, p, v);
+  View v = view_of(s, p);
   deck_draw(v, kHandSize);
-  store_view(s, p, v);
   for (int j = 0; j < 3; ++j) s.storage[p][j] = s.sel[j];
 }
 

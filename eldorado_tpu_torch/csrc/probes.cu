@@ -11,7 +11,8 @@
 // moving the state. A grid-stride copy of the (570, n) int32 carry, 16 bytes
 // a thread per access where the word count and both pointers allow it,
 // neighbouring threads on neighbouring addresses. Bytes bound it: at 4096
-// envs 9.3 MB in and 9.3 MB out, all inside the 50 MB L2. The TPU kernel
+// envs 9.3 MB in and 9.3 MB out, which fit in the 50 MB L2, so the tools
+// evict the L2 before each timed launch. The TPU kernel
 // also read its hoisted constants; they have no counterpart here, because
 // engine.cuh keeps its tables in __constant__ memory.
 //
@@ -30,11 +31,12 @@
 // have; this one cuts K1 at the boundaries of ed::sample_step (engine.cuh,
 // ed::step_prefix): 0 load, 1 sample, 2 ball read, 3 the whole step. The
 // per-step cost against the cut splits K1's time among staging, sampling,
-// the gather and the step body. Same launch shape as K1 (one thread per env,
-// 128-thread blocks), and like K1 latency- and divergence-bound.
+// the gather and the step body. Same layout as K1, so that the cuts still
+// describe K1's time: one thread per env, one warp per block, each env in
+// its shared-memory slot (step_kernel.cuh); like K1 latency-bound.
 #include <cuda_runtime.h>
 
-#include "engine.cuh"
+#include "step_kernel.cuh"
 
 namespace {
 
@@ -93,7 +95,7 @@ cudaError_t launch_op_chain(const int* x, const int* y, int* out, int count,
 
 // ---- P3 -------------------------------------------------------------------
 template <int kCut>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(ed::kStepThreads)
 step_prefix_kernel(const int* __restrict__ carry,
                    const int* __restrict__ srng_in,
                    const int* __restrict__ map_ids,
@@ -103,7 +105,7 @@ step_prefix_kernel(const int* __restrict__ carry,
                    int n, int n_steps) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
-  ed::Env s;
+  ed::Env& s = ed::env_slot();
   ed::load_env(s, carry, n, e);
   uint32_t srng = (uint32_t)srng_in[e];
   out[e] = (int)ed::step_prefix<kCut>(
@@ -155,16 +157,22 @@ extern "C" int ed_step_prefix(const void* carry, const void* srng,
                               void* out, int n, int n_steps, int cut,
                               void* stream) {
   if (n <= 0) return 0;
-  const int threads = 128, blocks = (n + threads - 1) / threads;
-  auto kernel = cut == 0   ? step_prefix_kernel<0>
-                : cut == 1 ? step_prefix_kernel<1>
-                : cut == 2 ? step_prefix_kernel<2>
-                : cut == 3 ? step_prefix_kernel<3>
-                           : nullptr;
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)carry, (const int*)srng, (const int*)map_ids,
-      (const int*)min_xy, (const int*)n_players, (const int*)max_steps,
-      (int*)out, n, n_steps);
-  return (int)cudaGetLastError();
+  const int* c = (const int*)carry;
+  const int* r = (const int*)srng;
+  const int* m = (const int*)map_ids;
+  const int* xy = (const int*)min_xy;
+  const int* np = (const int*)n_players;
+  const int* ms = (const int*)max_steps;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (cut) {
+    case 0: return ed::launch_slotted<step_prefix_kernel<0>>(
+        n, st, c, r, m, xy, np, ms, (int*)out, n, n_steps);
+    case 1: return ed::launch_slotted<step_prefix_kernel<1>>(
+        n, st, c, r, m, xy, np, ms, (int*)out, n, n_steps);
+    case 2: return ed::launch_slotted<step_prefix_kernel<2>>(
+        n, st, c, r, m, xy, np, ms, (int*)out, n, n_steps);
+    case 3: return ed::launch_slotted<step_prefix_kernel<3>>(
+        n, st, c, r, m, xy, np, ms, (int*)out, n, n_steps);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,4 +1,4 @@
-// K1: the record-free instantiation, K1-null, and the C entry that picks
+// K1: the record-free instantiation, K1-null, and the C entries that pick
 // an instantiation (step_kernel.cuh holds the kernel and its design notes).
 #include "step_kernel.cuh"
 
@@ -29,4 +29,19 @@ extern "C" int ed_fused_step(const void* carry_in, void* carry_out,
     case ed::kRecordFull: return ed::launch_fused_step_full(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// K1's block on the current device: out[0..2] = threads per block, shared
+// bytes per block, and blocks of the record-free K1 resident per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int ed_fused_step_occupancy(void* out) {
+  int* o = (int*)out;
+  o[0] = ed::kStepThreads;
+  o[1] = ed::kStepSmemBytes;
+  cudaError_t err = ed::allow_slots<ed::fused_step_kernel<false, 0>>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &o[2], ed::fused_step_kernel<false, 0>, ed::kStepThreads,
+        ed::kStepSmemBytes);
+  return (int)err;
 }

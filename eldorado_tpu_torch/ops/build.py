@@ -41,6 +41,8 @@ _ENTRIES = {
     # max_steps, actions, dead, records, n, n_steps, mask_src_sel,
     # gate_dead, null_body, record_words, stream
     "ed_fused_step": [_P] * 11 + [_I] * 6 + [_P],
+    # out: threads per block, shared bytes per block, blocks per SM
+    "ed_fused_step_occupancy": [_P],
     # carry_in, carry_out, n_players, player_xy, req, nr, end, q, stream
     "ed_fused_reset": [_P] * 7 + [_I] + [_P],
     # carry_in, carry_out, rows, n, stream

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from ..devices import resolve
+
 M = 2147483647  # 2^31 - 1, minstd modulus
 A = 16807
 URNG_RANGE = 2147483645  # engine max-min = (M-1) - 1
@@ -29,11 +31,11 @@ _i32 = torch.int32
 _i64 = torch.int64
 
 
-def seed(s, device=None):
+def seed(s, device="cuda"):
     """libstdc++ linear_congruential_engine::seed: x = s % M, 0 -> 1.
     Accepts uint32 values (as Python ints or any integer tensor; an int32
-    bit pattern is read as uint32). Returns int32."""
-    s = torch.as_tensor(s, device=device).to(_i64) & 0xFFFFFFFF
+    bit pattern is read as uint32). Returns int32 on ``device``."""
+    s = torch.as_tensor(s, device=resolve(device)).to(_i64) & 0xFFFFFFFF
     s = s % M
     return torch.where(s == 0, torch.ones_like(s), s).to(_i32)
 

@@ -15,6 +15,8 @@ learner feed's records, which ``launches`` counts too).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import stream as S
@@ -162,6 +164,18 @@ def fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
 fused_step.launches = 0
 fused_step.null_launches = 0
 fused_step.record_launches = {"compact": 0, "full": 0}
+
+
+def fused_step_shape(n: int) -> dict:
+    """K1's launch on the card at ``n`` envs: threads per block, blocks,
+    shared-memory bytes per block, and blocks resident per SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Launches nothing;
+    needs the CUDA build."""
+    out = (ctypes.c_int * 3)()
+    build.check(build.load().ed_fused_step_occupancy(out), "fused_step_shape")
+    threads, smem, per_sm = out
+    return {"threads": threads, "blocks": -(-n // threads),
+            "smem_bytes": smem, "blocks_per_sm": per_sm}
 
 
 # ------------------------------------------------------------------- K2

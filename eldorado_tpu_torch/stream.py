@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from .core import engine as E
+from .devices import resolve
 
 RECORD_WORDS = 5
 RECORD_WORDS_FULL = 40
@@ -325,12 +326,13 @@ class ObsReconstructor:
         }
 
 
-def device_stats_init(device=None):
-    """Carry of the demo on-device consumer: (steps, done_steps,
-    return_sum, action_histogram (5, 22)). done_steps counts per-step
-    done flags (a finished env stays done while it dead-steps to its
-    reset boundary, so this exceeds the episode count); return_sum is zero
-    on full batches (the game is zero-sum)."""
+def device_stats_init(device="cuda"):
+    """Carry of the demo on-device consumer, on ``device``: (steps,
+    done_steps, return_sum, action_histogram (5, 22)). done_steps counts
+    per-step done flags (a finished env stays done while it dead-steps to
+    its reset boundary, so this exceeds the episode count); return_sum is
+    zero on full batches (the game is zero-sum)."""
+    device = resolve(device)
     return (torch.zeros((), dtype=_i32, device=device),
             torch.zeros((), dtype=_i32, device=device),
             torch.zeros((), dtype=torch.float32, device=device),

@@ -5,8 +5,10 @@ Every tool times the card's kernels as the TPU tools in ``tools/`` did: the
 same work at two counts ``s1 < s2`` (steps inside one launch, or launches in
 a row), per unit = (t(s2) - t(s1)) / (s2 - s1), which cancels the fixed
 cost of each timed call. Launches in a row are captured once into a CUDA
-graph and replayed, so the host's Python between launches is not timed.
-There is no CPU mode: the tools measure the GPU or refuse to run.
+graph and replayed, so the host's Python between launches is not timed;
+where a launch's inputs would otherwise stay in the 50 MB L2 from one
+launch to the next, `cold` evicts them before each launch. There is no
+CPU mode: the tools measure the GPU or refuse to run.
 """
 from __future__ import annotations
 
@@ -98,3 +100,31 @@ def differenced(run: Callable[[int], object], s1: int, s2: int,
     t1, t2 = (min(event_ms(call) for _ in range(reps)) for call in calls)
     per = (t2 - t1) / (s2 - s1)
     return Slope(s1, s2, t1, t2, per, t1 - s1 * per)
+
+
+def cold(launch: Callable[[], object], s1: int, s2: int,
+         reps: int = 3) -> Slope:
+    """Time per launch of ``launch`` as a caller finds it whose inputs are
+    not in the L2 cache: before every launch a write of twice the L2's
+    bytes evicts whatever the last launch left there. Launches in a row
+    (s1 and s2 of them, each after its write, replayed from a CUDA graph)
+    are differenced as in `differenced`, less the same writes alone. The
+    write also leaves the L2 full of dirty lines, so a launch pays to
+    write back what it evicts, as the bytes a bound counts would."""
+    dev = torch.cuda.current_device()
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    flush = torch.empty(2 * l2 // 4, dtype=torch.int32, device=dev)
+
+    def both(s):
+        for _ in range(s):
+            flush.zero_()
+            launch()
+
+    def alone(s):
+        for _ in range(s):
+            flush.zero_()
+
+    a = differenced(both, s1, s2, reps, graph=True)
+    b = differenced(alone, s1, s2, reps, graph=True)
+    return Slope(s1, s2, a.t1 - b.t1, a.t2 - b.t2, a.per - b.per,
+                 a.fixed - b.fixed)

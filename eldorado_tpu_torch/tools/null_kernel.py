@@ -6,8 +6,10 @@ tools/tpu_null_kernel.py.
 
 `ops.probes.null_copy` reads and writes every word of K1's (570, envs)
 int32 carry once. Launches of it in a row (s1 and s2 of them, replayed
-from a CUDA graph) are differenced into the time per launch, reported in
-microseconds and in GB/s of bytes read plus written. The TPU kernel also
+from a CUDA graph, the L2 evicted before each: `_timing.cold`) are
+differenced into the time per launch, reported in microseconds and in
+GB/s of bytes read plus written. At 4096 envs the carry is 9.3 MB and
+would otherwise stay in the 50 MB L2 from one launch to the next. The TPU kernel also
 read its hoisted constants; the CUDA kernels keep their tables in
 __constant__ memory, so nothing stands for them here. The last line is a
 JSON object of every number printed. Needs a CUDA device.
@@ -22,11 +24,8 @@ from . import _timing
 
 
 def measure(carry, s1: int, s2: int, reps: int = 3) -> _timing.Slope:
-    """Slope of null_copy per launch on ``carry``."""
-    def run(s):
-        for _ in range(s):
-            P.null_copy(carry)
-    return _timing.differenced(run, s1, s2, reps, graph=True)
+    """Slope of null_copy per launch on ``carry``, the L2 cold."""
+    return _timing.cold(lambda: P.null_copy(carry), s1, s2, reps)
 
 
 def report(row: _timing.Slope, carry) -> str:

@@ -13,7 +13,8 @@ and ``sampler_init(7, envs)``, it times
   staging the carry in and out;
 - ``null``: K1-null (``fused_step(null_body=True)``), which stages every
   env as K1 does and runs no step, so it is timed per launch, s1 and s2
-  launches in a row: K1's launch and staging floor.
+  launches in a row, the L2 evicted before each (`_timing.cold`), as K1
+  finds its carry: K1's launch and staging floor.
 
 The TPU tool's ``nogather`` and ``null+gather`` variants timed the XLA
 ball gather beside the kernel. In the port the gather happens inside K1,
@@ -35,12 +36,11 @@ def measure(carry, srng, static, s1: int, s2: int, reps: int = 3) -> dict:
     def full(s):
         return K.fused_step(carry, srng, *static, s)
 
-    def null(s):
-        for _ in range(s):
-            K.fused_step(carry, srng, *static, 1, null_body=True)
+    def null():
+        K.fused_step(carry, srng, *static, 1, null_body=True)
 
     return {"full": _timing.differenced(full, s1, s2, reps),
-            "null": _timing.differenced(null, s1, s2, reps, graph=True)}
+            "null": _timing.cold(null, s1, s2, reps)}
 
 
 def report(rows: dict, envs: int) -> list:

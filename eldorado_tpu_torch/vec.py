@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from .core import engine as E
+from .devices import resolve
 from .errors import GenerateMapFailure, MapCapacityError
 from .ops import rng as R
 from .ops.step_kernel import fused_reset, fused_step
@@ -30,9 +31,11 @@ def _seeds(seed, n, device):
             + int(seed)) & 0xFFFFFFFF
 
 
-def sampler_init(seed, n_envs, device=None):
-    """Sampler i's engine seeded with seed + i (include/vec_sampler.h)."""
-    return R.seed(_seeds(seed, n_envs, device))
+def sampler_init(seed, n_envs, device="cuda"):
+    """Sampler i's engine seeded with seed + i (include/vec_sampler.h),
+    on ``device``."""
+    device = resolve(device)
+    return R.seed(_seeds(seed, n_envs, device), device=device)
 
 
 def check_map_generation(states):
@@ -113,24 +116,28 @@ def _reset_all(states: E.EnvState) -> E.EnvState:
 
 
 def vec_reset(seed, n_envs, n_players=4, n_pieces=3, difficulty=0,
-              max_steps=100000, check_maps=True, device=None):
+              max_steps=100000, check_maps=True, device="cuda"):
     """vec_cog_env::reset(seed, ...): env i is seeded with seed + i
     (include/vec_environment.h:38-44). Map generation, then K2 at full
-    width. Unless ``check_maps=False``, raises `GenerateMapFailure` /
-    `MapCapacityError` when any env's procgen failed."""
+    width, on ``device``. Unless ``check_maps=False``, raises
+    `GenerateMapFailure` / `MapCapacityError` when any env's procgen
+    failed."""
+    device = resolve(device)
     states = _reset_all(E.make_state(_seeds(seed, n_envs, device),
                                      n_players, n_pieces, difficulty,
-                                     max_steps))
+                                     max_steps, device=device))
     return check_map_generation(states) if check_maps else states
 
 
 def vec_reset_varied(seeds, n_players=4, n_pieces=3, difficulty=0,
-                     max_steps=100000, check_maps=True, device=None):
-    """Heterogeneous lockstep batch: every argument may be a scalar or an
-    (n_envs,) sequence, and env i resets with its own parameters."""
+                     max_steps=100000, check_maps=True, device="cuda"):
+    """Heterogeneous lockstep batch on ``device``: every argument may be a
+    scalar or an (n_envs,) sequence, and env i resets with its own
+    parameters."""
+    device = resolve(device)
     seeds = torch.as_tensor(seeds, device=device).to(torch.int64)
     states = _reset_all(E.make_state(seeds, n_players, n_pieces, difficulty,
-                                     max_steps))
+                                     max_steps, device=device))
     return check_map_generation(states) if check_maps else states
 
 

@@ -71,6 +71,31 @@ def test_fused_step_records_equal_plain(dev, mask_src, gate_dead):
         assert bool(((plain[..., 0] >> 25) & 1).any())
 
 
+@pytest.mark.parametrize("n", [1, 33, 4097, 16384])
+def test_fused_step_slotted_launch_equals_plain(dev, n):
+    """K1 launches one warp per block with each env in shared memory: at
+    env counts that leave a ragged last block (1, 33, 4097) and at 16384
+    envs, more blocks than the card holds at once, so a second wave
+    follows. Every field, srng, actions and dead steps equal plain's."""
+    steps = 40 if n <= 4097 else 8
+    s = et.vec_reset(9, n, 2, 1, 0, 10, device=dev)
+    carry = TE.pack_dyn(TE.split_state(s)[1])
+    st = (s.map_ids, s.min_xy, s.n_players, s.max_steps)
+    r = et.sampler_init(4, n, device=dev)
+    outs = []
+    for fn in (K.fused_step, K.fused_step_plain):
+        dead = torch.zeros(1, dtype=torch.int64, device=dev)
+        outs.append(fn(carry, r, *st, steps, "storage", False, dead)
+                    + (dead,))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    shape = K.fused_step_shape(n)
+    assert shape["threads"] == 32
+    assert shape["blocks"] == (n + 31) // 32
+    assert shape["smem_bytes"] == 32 * 571 * 4
+    assert shape["blocks_per_sm"] >= 1
+
+
 def test_stream_cuda_equals_cpu(dev):
     """stream_rollout(record="full") over the ring, and on-device
     delivery, at 64 envs with mid-run resets: records, keyframes,

@@ -18,7 +18,8 @@ from test_jax_parity import GOLDEN, MAPGEN_CASES
 @pytest.mark.parametrize("name,n_pieces,diff", MAPGEN_CASES)
 def test_mapgen_matches_oracle(name, n_pieces, diff):
     d = np.load(f"{GOLDEN}/{name}.npz")
-    out = generate_map(seed(d["seeds"].astype(np.int64)), n_pieces, diff)
+    out = generate_map(seed(d["seeds"].astype(np.int64), device="cpu"),
+                       n_pieces, diff)
     assert np.array_equal(out.ok.numpy().astype(np.uint8), d["ok"])
     good = d["ok"] > 0
     assert np.array_equal(TCells.expand_obs(out.ids).numpy()[good],
@@ -31,7 +32,8 @@ def test_mapgen_equals_jax(n_pieces, diff):
         0, 1 << 31, size=16).astype(np.uint32)
     want = jax.jit(jax.vmap(lambda s: jax_generate_map(s, n_pieces, diff)))(
         jax.vmap(jax_seed)(seeds))
-    got = generate_map(seed(seeds.astype(np.int64)), n_pieces, diff)
+    got = generate_map(seed(seeds.astype(np.int64), device="cpu"), n_pieces,
+                       diff)
     for f in ("ids", "min_xy", "player_start_xy", "player_start_no", "ok",
               "overflow"):
         assert np.array_equal(getattr(got, f).numpy(),
@@ -51,12 +53,12 @@ def test_cell_codec_roundtrip_equals_jax():
 
 def test_full_library_map_generates():
     # start + all 16 travel pieces + end (tests/test_map_failure.py)
-    states = et.vec_reset(1, 4, 4, 16, 2, 100)
+    states = et.vec_reset(1, 4, 4, 16, 2, 100, device="cpu")
     assert bool(states.map_ok.all())
 
 
 def test_capacity_error_surfacing():
-    states = et.vec_reset(5, 4, 2, 2, 0, 100)
+    states = et.vec_reset(5, 4, 2, 2, 0, 100, device="cpu")
     states.map_overflow = torch.ones_like(states.map_overflow)
     with pytest.raises(et.MapCapacityError):
         et.check_map_generation(states)

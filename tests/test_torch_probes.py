@@ -45,10 +45,10 @@ def jax_start():
 
 
 def _port(js, jr):
-    s = convert.state_from_numpy(js)
+    s = convert.state_from_numpy(js, device="cpu")
     static = (s.map_ids, s.min_xy, s.n_players, s.max_steps)
     carry = TE.pack_dyn(TE.split_state(s)[1])
-    return carry, convert.rngs_from_numpy(jr), static
+    return carry, convert.rngs_from_numpy(jr, device="cpu"), static
 
 
 @pytest.fixture(scope="module")

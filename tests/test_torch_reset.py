@@ -26,14 +26,15 @@ def assert_states_equal(ours, theirs):
 @pytest.mark.parametrize("n_players", [2, 4])
 @pytest.mark.parametrize("difficulty", [0, 2])
 def test_vec_reset_equals_jax(n_players, difficulty):
-    assert_states_equal(et.vec_reset(5, 8, n_players, 3, difficulty, 100000),
+    assert_states_equal(et.vec_reset(5, 8, n_players, 3, difficulty, 100000,
+                                     device="cpu"),
                         JV.vec_reset(5, 8, n_players, 3, difficulty, 100000))
 
 
 def test_vec_reset_varied_equals_jax():
     seeds = [3, 99, 12345, 7, 2 ** 32 - 1, 0]
     args = ([2, 4, 3, 4, 1, 2], [1, 3, 2, 3, 1, 2], [0, 2, 1, 0, 0, 1], 50)
-    assert_states_equal(et.vec_reset_varied(seeds, *args),
+    assert_states_equal(et.vec_reset_varied(seeds, *args, device="cpu"),
                         JV.vec_reset_varied(np.asarray(seeds, np.uint32),
                                             *args))
 
@@ -41,10 +42,11 @@ def test_vec_reset_varied_equals_jax():
 def test_reset_body_equals_jax():
     """The plain K2 version on mid-game states (80 plain steps after a
     reset) equals jax.vmap(engine.reset_body) on the same prelude."""
-    s = et.vec_reset(21, 8, 4, 2, 1, 100000)
+    s = et.vec_reset(21, 8, 4, 2, 1, 100000, device="cpu")
     carry = TE.pack_dyn(TE.split_state(s)[1])
-    carry, _, _ = K.fused_step(carry, et.sampler_init(3, 8), s.map_ids,
-                               s.min_xy, s.n_players, s.max_steps, 80)
+    carry, _, _ = K.fused_step(carry, et.sampler_init(3, 8, device="cpu"),
+                               s.map_ids, s.min_xy, s.n_players, s.max_steps,
+                               80)
     mid = TE.merge_state(TE.split_state(s)[0], TE.unpack_dyn(carry))
     js = JE.EnvState(**{f: jax.numpy.asarray(v) for f, v in
                         convert.state_to_numpy(mid).items()})
@@ -67,7 +69,7 @@ def test_reset_body_equals_jax():
 def test_generate_map_failure_raises():
     # only 3 EASY travel pieces exist
     with pytest.raises(et.GenerateMapFailure):
-        et.vec_reset(1, 4, 2, 4, 0, 100)
-    states = et.vec_reset(1, 4, 2, 4, 0, 100, check_maps=False)
+        et.vec_reset(1, 4, 2, 4, 0, 100, device="cpu")
+    states = et.vec_reset(1, 4, 2, 4, 0, 100, check_maps=False, device="cpu")
     assert not bool(states.map_ok.all())
     assert isinstance(states.map_ok, torch.Tensor)

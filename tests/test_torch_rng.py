@@ -37,7 +37,7 @@ def streams():
 
 def test_raw_engine_stream(streams):
     seeds, raws, _, _, _ = streams
-    x = TR.seed(torch.tensor(seeds, dtype=torch.int64))
+    x = TR.seed(torch.tensor(seeds, dtype=torch.int64), device="cpu")
     got = []
     for _ in range(raws[0].shape[0]):
         x = TR.next_u31(x)
@@ -51,7 +51,7 @@ def test_uniform_int_streams(streams):
     seeds, _, ranges, uniforms, n_draws = streams
     ss = [s for s in seeds for _ in ranges]
     rr = torch.tensor([r for _ in seeds for r in ranges], dtype=torch.int64)
-    x = TR.seed(torch.tensor(ss, dtype=torch.int64))
+    x = TR.seed(torch.tensor(ss, dtype=torch.int64), device="cpu")
     out = []
     for _ in range(n_draws):
         v, x = TR.uniform_int(x, rr)
@@ -78,7 +78,8 @@ def test_next_and_seed_equal_jax():
     seeds = np.random.RandomState(1).randint(0, 1 << 32, size=10_000,
                                              dtype=np.int64)
     seeds[:3] = (0, TR.M, (1 << 32) - 1)
-    assert np.array_equal(TR.seed(torch.from_numpy(seeds)).numpy(),
+    assert np.array_equal(TR.seed(torch.from_numpy(seeds),
+                                  device="cpu").numpy(),
                           np.asarray(JR.seed(seeds.astype(np.uint32))))
 
 

@@ -54,9 +54,9 @@ def _compare(ts, js, tr, jr, ta, ja, t):
 
 
 def _run(js, jr, jax_step, mask_src, gate_dead, steps=10):
-    s = convert.state_from_numpy(js)
+    s = convert.state_from_numpy(js, device="cpu")
     carry = TE.pack_dyn(TE.split_state(s)[1])
-    tr = convert.rngs_from_numpy(jr)
+    tr = convert.rngs_from_numpy(jr, device="cpu")
     dead = torch.zeros(1, dtype=torch.int64)
     want_dead = 0
     for t in range(steps):
@@ -113,9 +113,9 @@ def test_plain_step_natural_win_equals_xla():
 def test_multi_step_launch_equals_single_steps():
     """One n_steps=10 call equals ten n_steps=1 calls (the chunk loop)."""
     js, jr = _start(done_every=4)
-    s = convert.state_from_numpy(js)
+    s = convert.state_from_numpy(js, device="cpu")
     c0 = TE.pack_dyn(TE.split_state(s)[1])
-    r0 = convert.rngs_from_numpy(jr)
+    r0 = convert.rngs_from_numpy(jr, device="cpu")
     st = (s.map_ids, s.min_xy, s.n_players, s.max_steps)
     d1, d2 = torch.zeros(1, dtype=torch.int64), torch.zeros(1,
                                                           dtype=torch.int64)
@@ -128,7 +128,7 @@ def test_multi_step_launch_equals_single_steps():
 
 
 def test_carry_roundtrip():
-    s = convert.state_from_numpy(_start()[0])
+    s = convert.state_from_numpy(_start()[0], device="cpu")
     dyn = TE.split_state(s)[1]
     carry = TE.pack_dyn(dyn)
     assert carry.shape == (TE.CARRY_WORDS, N) and carry.dtype == torch.int32

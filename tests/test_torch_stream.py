@@ -208,9 +208,9 @@ def test_ring_loader_raises_on_failing_compiler(tmp_path, failing_cxx,
 
 
 def test_device_delivery_refuses_compress():
-    s = et.vec_reset(5, 8, 4, 1, 0, 30)
+    s = et.vec_reset(5, 8, 4, 1, 0, 30, device="cpu")
     with pytest.raises(ValueError, match="compress"):
-        S.stream_rollout(s, et.sampler_init(11, 8), 40, 40,
+        S.stream_rollout(s, et.sampler_init(11, 8, device="cpu"), 40, 40,
                          deliver="device", compress=True)
 
 
@@ -222,9 +222,9 @@ def test_failing_consumer_raises(n_steps):
     def consume(rec):
         raise KeyError("consumer bug")
 
-    s = et.vec_reset(5, 8, 4, 1, 0, 100000)
+    s = et.vec_reset(5, 8, 4, 1, 0, 100000, device="cpu")
     with pytest.raises(RuntimeError, match="consumer") as info:
-        S.stream_rollout(s, et.sampler_init(11, 8), n_steps, 40,
+        S.stream_rollout(s, et.sampler_init(11, 8, device="cpu"), n_steps, 40,
                          steps_per_push=20, consume=consume)
     assert isinstance(info.value.__cause__, KeyError)
 

@@ -45,7 +45,8 @@ def jax_stream(reset, T, chunk, spp, **kw):
 
 def our_stream(reset, T, chunk, spp, **kw):
     blocks, fn = collect([])
-    out = S.stream_rollout(et.vec_reset(*reset), et.sampler_init(11, N), T,
+    out = S.stream_rollout(et.vec_reset(*reset, device="cpu"),
+                           et.sampler_init(11, N, device="cpu"), T,
                            chunk=chunk, steps_per_push=spp, consume=fn, **kw)
     return out, np.concatenate(blocks)
 
@@ -101,9 +102,11 @@ def test_plain_records_equal_xla_surface(mask_src):
     want = np.moveaxis(np.asarray(want)[:, 0], -1, 1)       # (T, n, 5)
 
     s = convert.state_from_numpy(
-        {f: np.asarray(getattr(js, f)) for f in JE.EnvState._fields})
+        {f: np.asarray(getattr(js, f)) for f in JE.EnvState._fields},
+        device="cpu")
     recs = torch.zeros((T, N, S.RECORD_WORDS), dtype=torch.int32)
-    K.fused_step(E.pack_dyn(E.split_state(s)[1]), et.sampler_init(4, N),
+    K.fused_step(E.pack_dyn(E.split_state(s)[1]),
+                 et.sampler_init(4, N, device="cpu"),
                  s.map_ids, s.min_xy, s.n_players, s.max_steps, T, mask_src,
                  record="compact", records=recs)
     assert np.array_equal(recs.numpy(), want)
@@ -115,8 +118,9 @@ def test_full_records_equal_xla_replay():
     and every word == pack_step_full_blocked of an XLA replay of the
     recorded actions (jax vmap(step_env)), at every step."""
     T = 40
-    s = et.vec_reset(9, N, 2, 1, 0, 10)
-    args = (E.pack_dyn(E.split_state(s)[1]), et.sampler_init(3, N),
+    s = et.vec_reset(9, N, 2, 1, 0, 10, device="cpu")
+    args = (E.pack_dyn(E.split_state(s)[1]),
+            et.sampler_init(3, N, device="cpu"),
             s.map_ids, s.min_xy, s.n_players, s.max_steps, T)
     full = torch.zeros((T, N, S.RECORD_WORDS_FULL), dtype=torch.int32)
     comp = torch.zeros((T, N, S.RECORD_WORDS), dtype=torch.int32)
@@ -193,7 +197,8 @@ def test_obs_reconstructor_equals_jax(jax_full, our_full):
     keyframe; the final ObsData surfaces are equal too."""
     (_, _, _, jcons), jrec = jax_full
     (_, _, _, cons), rec = our_full
-    ours = S.ObsReconstructor(et.vec_reset(*FULL["reset"]), cons.q_cap)
+    ours = S.ObsReconstructor(et.vec_reset(*FULL["reset"], device="cpu"),
+                              cons.q_cap)
     theirs = JS.ObsReconstructor(JV.vec_reset(*FULL["reset"]), jcons.feat,
                                  jcons.q_cap)
     names = ("piles", "shop", "storage", "sel", "map_ids", "min_xy",
@@ -234,7 +239,8 @@ def test_device_delivery_equals_jax_stats(jax_compact):
     == JAX's device_stats_fn over JAX's records (as (T, 1, 5, n))."""
     _, jrec = jax_compact
     s, r, eps, carry = S.stream_rollout(
-        et.vec_reset(*COMPACT["reset"]), et.sampler_init(11, N),
+        et.vec_reset(*COMPACT["reset"], device="cpu"),
+        et.sampler_init(11, N, device="cpu"),
         COMPACT["T"], COMPACT["chunk"], deliver="device")
     want = JS.device_stats_fn(JS.device_stats_init(),
                               jnp.moveaxis(jnp.asarray(jrec), 1, -1)[:, None])

@@ -22,8 +22,8 @@ def test_rollout_chunked_equals_jax_xla():
     """n=8, max_steps=30, 200 steps, chunk 50 (the verify recipe): the
     queued sync resets equal the XLA path's bucketed resets."""
     k1, k2 = K.fused_step.launches, K.fused_reset.launches
-    ours = et.rollout_chunked(et.vec_reset(5, 8, 4, 1, 0, 30),
-                              et.sampler_init(11, 8), 200, 50)
+    ours = et.rollout_chunked(et.vec_reset(5, 8, 4, 1, 0, 30, device="cpu"),
+                              et.sampler_init(11, 8, device="cpu"), 200, 50)
     theirs = JV.rollout_chunked(JV.vec_reset(5, 8, 4, 1, 0, 30),
                                 JV.sampler_init(11, 8), 200, 50,
                                 backend="xla")
@@ -39,8 +39,9 @@ def test_rollout_chunked_exact_equals_jax_kernel():
     """exact=True at tests/test_exact_reset.py's settings (n=8,
     max_steps=20, chunk 10, 12 chunks) against the Pallas kernel path in
     interpret mode: fields, srngs, episodes and dead steps."""
-    ours = et.rollout_chunked(et.vec_reset(5, 8, 4, 1, 0, 20),
-                              et.sampler_init(11, 8), 120, 10, exact=True)
+    ours = et.rollout_chunked(et.vec_reset(5, 8, 4, 1, 0, 20, device="cpu"),
+                              et.sampler_init(11, 8, device="cpu"), 120, 10,
+                              exact=True)
     theirs = JV.rollout_chunked(JV.vec_reset(5, 8, 4, 1, 0, 20),
                                 JV.sampler_init(11, 8), 120, 10,
                                 backend="kernel", block=8, interpret=True,
@@ -55,7 +56,8 @@ def test_rollout_chunked_exact_equals_jax_kernel():
 def test_convert_roundtrip():
     js = JV.vec_reset(2, 4, 3, 2, 1, 100)
     ours = convert.state_from_numpy(
-        {f: np.asarray(getattr(js, f)) for f in JE.EnvState._fields})
+        {f: np.asarray(getattr(js, f)) for f in JE.EnvState._fields},
+        device="cpu")
     assert_states_equal(ours, js)
     assert_states_equal(convert.state_from_numpy(convert.state_to_numpy(
-        ours)), js)
+        ours), device="cpu"), js)
