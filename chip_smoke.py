@@ -11,17 +11,22 @@ before the final line:
 
 0. the device, the card's name and power limit (nvidia-smi), versions and
    the kernel build time, and every kernel's registers and stack frame;
-1. K3 (map generation and its prelude) against the eight oracle goldens,
-   and against its plain version (generate_map_plain and the plain
-   prelude) on every lane and field: the 4096 main-path seeds, a mixed
-   batch (1-4 players, 1-16 pieces, difficulties 0-2, aborted and
-   MAX_PLACED-overflow lanes) and, in its queue form, a 128-env reset
-   queue of mid-game envs writing the batch's rows;
+1. K3 (map generation and its prelude, one warp per env) against the
+   eight oracle goldens, and against its plain version (generate_map_plain
+   and the plain prelude) on every lane and field: the 4096 main-path
+   seeds, a mixed batch (1-4 players, 1-16 pieces, difficulties 0-2,
+   aborted and MAX_PLACED-overflow lanes), the mixed batch again in every
+   launch shape (1, 2 or 4 envs a block, the pair table through L1 or in
+   shared memory) and, in its queue form, a 128-env reset queue of
+   mid-game envs writing the batch's rows;
 2. K2 (fused_reset) against its plain version: vec_reset at 4096 envs,
    then in place on the 128-env queue's columns of the batch carry;
 3. K1 (fused_step) against its plain version: 1024 envs, 64 steps, with
    the storage mask, the sel mask, and gate_dead;
-4. the slice, CUDA against CPU: rollout_chunked at 512 envs;
+4. the slice, CUDA against CPU: rollout_chunked at 512 envs; then the
+   card path against the 11 oracle trajectory goldens at full length
+   (tests/traj_replay.py: one K1 launch per step, K3 and K2 at each
+   game's end; traj_win_storage's 20,000 steps with two won games);
 5. the main path at full size: vec_reset(12345, 4096, 4, 3, EASY,
    max_steps=100000) and rollout_chunked over 3 chunks of 1500 steps
    (and once with exact=True), timed, with K1's share and the reset
@@ -30,7 +35,9 @@ before the final line:
    on the 4096-env mid-game carry over a 200-step window in which games
    end by a win; kernel times beside their plain versions and bounds;
    K1's launch shape (threads, blocks, shared bytes per block, blocks
-   resident per SM) and its ms per step at 8192 and 16384 envs;
+   resident per SM) and its ms per step at 8192 and 16384 envs; K3's
+   launch shape and its ms per 128-env queue and at 4096 envs in every
+   launch shape (both places of the pair table);
 6. K1's cost probes on the carry phase 5 leaves: K1-null, P1 (null
    copy), P2 (op chain, nine shapes, both ops, k=4096) and P3 (step
    prefix, cuts 0-3 over 8 steps) against their plain versions, then the
@@ -56,8 +63,11 @@ integer instructions on the SM's 64 int32 lanes, loads and stores on its
 whichever takes longest. The instructions of K1, K1-null, K2, K3 and P3 are
 counted by kind by a profiling build run on the timed inputs
 (eldorado_tpu_torch/tools/inst_count.py: PTX instructions per thread;
-phase 5 sets K1's static SASS count beside its PTX count); P1 does no
-arithmetic; P2's are its k ops per element. P1 and K1-null are timed
+phase 5 sets K1's static SASS count beside its PTX count); K3's are its
+work, the same per-env code run one thread per env (count_k3_work), not
+the copies of its scalar chain in the other lanes of its warp, whose sum
+phase 5 prints beside it; P1 does no arithmetic; P2's are its k ops per
+element. P1 and K1-null are timed
 with the L2 evicted before each launch, so that their bytes come from
 HBM as their bound assumes. For P1 it also times one PyTorch call that
 computes the same function (``dst.copy_(src)``), the same way; no single
@@ -85,6 +95,11 @@ OP_K = 4096        # phase 6: P2's chain length
 WIDE = (8192, 16384)   # phase 5: K1's ms per step at these env counts
 Q = 128            # phases 1, 2 and 5: the reset queue's width
 MIXED_N = 512      # phase 1: the mixed batch
+# phases 1 and 5: K3's launch shapes (envs per block, pair table in
+# shared memory)
+K3_SHAPES = tuple((e, o) for o in (False, True) for e in (1, 2, 4))
+K3_ROUNDS = 5      # phase 5: turns of timing every K3 shape
+HOLD_CYCLES = 50_000_000   # cuda_ms(ahead=True): about 25 ms of spin
 GOLDENS = (("mapgen_easy", 3, 0), ("mapgen_medium", 3, 1),
            ("mapgen_hard", 3, 2), ("mapgen_1p", 1, 0), ("mapgen_2p", 3, 0),
            ("mapgen_8p_medium", 8, 1), ("mapgen_10p_hard", 10, 2),
@@ -129,26 +144,41 @@ def expect_equal(tag: str, a: dict, b: dict):
 MAP_FIELDS = ("map_ids", "min_xy", "map_ok", "map_overflow")
 
 
-def k3_check(tag: str, st) -> float:
+def k3_check(tag: str, st, shapes=(None,)) -> float:
     """K3 with its prelude (one launch) against generate_map_plain and the
     plain prelude, on the engine words and parameters of the states
-    ``st``: every lane, every field. Returns the max abs error (0)."""
+    ``st``: every lane, every field; in the default launch shape (None)
+    and each of ``shapes``. Returns the max abs error (0)."""
+    import torch
     from eldorado_tpu_torch.core import engine as E
+    from eldorado_tpu_torch.core import mapgen as MG
     ins = (st.rng, st.n_pieces, st.difficulty, st.n_players)
-    res = []
-    for fn in (E.reset_map_prelude, E.reset_map_prelude_plain):
-        gen, xy, (req, nr, end) = fn(*ins)
-        res.append(dict(ids=gen.ids, min_xy=gen.min_xy,
-                        start_xy=gen.player_start_xy,
-                        start_no=gen.player_start_no, ok=gen.ok,
-                        overflow=gen.overflow, player_xy=xy, req=req, nr=nr,
-                        end=end))
-    err = expect_equal(tag, res[0], res[1])
-    ok, over = res[1]["ok"], res[1]["overflow"]
+
+    def fields(gen, xy, ball):
+        return dict(ids=gen.ids, min_xy=gen.min_xy,
+                    start_xy=gen.player_start_xy,
+                    start_no=gen.player_start_no, ok=gen.ok,
+                    overflow=gen.overflow, player_xy=xy, req=ball[0],
+                    nr=ball[1], end=ball[2])
+    want = fields(*E.reset_map_prelude_plain(*ins))
+    err = 0.0
+    for shape in shapes:
+        if shape is None:
+            got = fields(*E.reset_map_prelude(*ins))
+        else:
+            got = {k: torch.empty_like(v) for k, v in want.items()}
+            MG.launch(*ins[:3], tuple(got[k] for k in ("ids", "min_xy", "ok",
+                                                       "overflow")),
+                      starts=(got["start_xy"], got["start_no"]),
+                      n_players=ins[3], prelude=tuple(
+                          got[k] for k in ("player_xy", "req", "nr", "end")),
+                      shape=shape)
+        err = max(err, expect_equal(f"{tag}, K3 shape {shape}", got, want))
+    ok, over = want["ok"], want["overflow"]
     print(f"{tag.split(' (')[0]}: K3 == plain generator and prelude on "
           f"{tag.split('(')[1][:-1]}: {ok.numel()} envs, every field; "
           f"{int(ok.sum())} maps, {int((~ok & ~over).sum())} aborted, "
-          f"{int(over.sum())} overflowed")
+          f"{int(over.sum())} overflowed; launch shapes {list(shapes)}")
     return err
 
 
@@ -200,11 +230,18 @@ def k1_bound(c, srng, static, steps: int, dead: int, record=None) -> tuple:
             per_kind(ops, n * steps))
 
 
-def cuda_ms(fn, reps: int = 1):
+def cuda_ms(fn, reps: int = 1, ahead: bool = False):
+    """Milliseconds per call of the work ``fn`` enqueues, between CUDA
+    events around ``reps`` calls. ``ahead``: the card first spins for
+    HOLD_CYCLES, so that every call is enqueued before it starts them and
+    the time is the device's alone, not the host's between short
+    launches."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if ahead:
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         out = fn()
@@ -280,7 +317,8 @@ def main():
     seeds, players, pieces, diffs = MG.mixed_batch(MIXED_N)
     mixed = E.make_state(torch.as_tensor(seeds, device=dev), players,
                          pieces, diffs, 100)
-    err_k3 = max(err_k3, k3_check("phase 1 (mixed batch)", mixed))
+    err_k3 = max(err_k3, k3_check("phase 1 (mixed batch)", mixed,
+                                  (None,) + K3_SHAPES))
     # the 128-env reset queue: every 32nd env of the main path 200 steps
     # after its reset, K3 writing its rows of (copies of) the batch's maps
     states = et.vec_reset(12345, N_MAIN, 4, 3, 0, 100000, device=dev)
@@ -397,6 +435,33 @@ def main():
     print(f"phase 4: rollout_chunked 512 envs x 400 steps, CUDA == CPU on "
           f"every field and srng; episodes {ep_gpu}; K2 and K3 launches "
           f"{k2_gpu}")
+    # the card path against the oracle trajectory goldens, full length
+    sys.path.insert(0, str(ROOT / "tests"))
+    import traj_replay as TR
+    before = (K.fused_step.launches, MG.generate_map.launches,
+              K.fused_reset.launches)
+    t_gold = time.perf_counter()
+    resets = 0
+    for mask_src in (0, 1):
+        names = [n for n in TR.NAMES if TR.probe_params(n)[0] == mask_src]
+        ds = {n: TR.load(n) for n in names}
+        steps = max(TR.header(d)[-1] for d in ds.values())
+        for gname, traj in zip(names, TR.replay(names, steps, dev)):
+            try:
+                TR.check(gname, ds[gname], traj, TR.header(ds[gname])[-1])
+            except AssertionError as exc:
+                fail(f"phase 4: {exc}")
+            resets += len(traj.maps) - 1
+    gold = [a - b for a, b in zip((K.fused_step.launches,
+                                   MG.generate_map.launches,
+                                   K.fused_reset.launches), before)]
+    if min(gold) <= 0:
+        fail(f"phase 4: the golden replay launched K1, K3, K2 {gold} times")
+    print(f"phase 4: the card path == the {len(TR.NAMES)} oracle trajectory "
+          f"goldens at full length (every compared field of every step, "
+          f"{resets} reset maps; traj_win_storage's 20000 steps with two won "
+          f"games), {time.perf_counter() - t_gold:.1f} s; launches K1, K3, "
+          f"K2 {gold}")
 
     # ---- phase 5: the main path at full size --------------------------
     K.fused_step.launches = 0
@@ -490,11 +555,11 @@ def main():
     k3_maps = [getattr(q_states, f).clone() for f in MAP_FIELDS]
     q_carry = stepped.clone()
     ms_k3, _ = cuda_ms(lambda: E.reset_map_prelude_rows(*q_in, k3_maps),
-                       reps=20)
+                       reps=20, ahead=True)
     ms_plain3, _ = cuda_ms(lambda: E.reset_map_prelude_rows_plain(
         *q_in, k3_maps))
     ms_k2, _ = cuda_ms(lambda: K.fused_reset(q_carry, *q_args, idx=idx),
-                       reps=20)
+                       reps=20, ahead=True)
     ms_plain2, _ = cuda_ms(lambda: K.fused_reset_plain(q_carry, *q_args,
                                                        idx=idx), reps=2)
     queue_ms = []
@@ -543,7 +608,8 @@ def main():
     ops_k2 = IC.count_k2(stepped, *q_args, idx=idx)
     bound_k2, by_k2 = bound(Q * (2 * E.CARRY_WORDS * 4 + 8 + queue_out),
                             ops_k2)
-    ops_k3 = IC.count_k3(*q_in)
+    ops_k3 = IC.count_k3_work(*q_in)
+    ops_k3_warp = IC.count_k3(*q_in)
     bound_k3, by_k3 = bound(
         Q * (5 * 4 + E.GRIDSIZE ** 2 * 4 + 8 + 2 + queue_out)
         + MG._K(dev).ovl.numel() * 4, ops_k3)
@@ -554,15 +620,52 @@ def main():
     # the same kernels at the reset's full width (vec_reset: 4096 envs,
     # 128 warps on 128 SMs)
     ms_k3_full, _ = cuda_ms(lambda: E.reset_map_prelude(
-        s0.rng, s0.n_pieces, s0.difficulty, s0.n_players), reps=5)
+        s0.rng, s0.n_pieces, s0.difficulty, s0.n_players), reps=5,
+        ahead=True)
     ms_k2_full, _ = cuda_ms(lambda: K.fused_reset(
-        carry0, s0.n_players, pxy, req, nr, end), reps=20)
+        carry0, s0.n_players, pxy, req, nr, end), reps=20, ahead=True)
     print(f"phase 5: at {N_MAIN} envs (vec_reset): K3 {ms_k3_full:.4f} ms, "
           f"K2 {ms_k2_full:.4f} ms per launch")
     print(f"phase 5: K3 bound {bound_k3:.6f} ms per {Q}-env queue "
-          f"({by_k3}; {sum(ops_k3.values()) / Q:.0f} PTX instructions per "
-          f"env: {per_kind(ops_k3, Q)}): K3 takes {ms_k3 / bound_k3:.1f}x "
-          "its bound")
+          f"({by_k3}; its work {sum(ops_k3.values()) / Q:.0f} PTX "
+          f"instructions per env, one thread per env: {per_kind(ops_k3, Q)};"
+          f" K3's warps execute {sum(ops_k3_warp.values()) / Q:.0f} per env "
+          f"over their 32 lanes: {per_kind(ops_k3_warp, Q)}): K3 takes "
+          f"{ms_k3 / bound_k3:.1f}x its bound")
+    # K3's launch shapes: the default's, then every shape's time on the
+    # queue and at full width, the pair table through L1 and in shared
+    # memory
+    for n_envs in (Q, N_MAIN):
+        shape = MG.launch_shape(n_envs)
+        print(f"phase 5: K3 launch at {n_envs} envs: {shape['blocks']} "
+              f"blocks of {shape['envs_per_block']} warps (one per env), "
+              f"{shape['smem_bytes']} B of shared memory per block, "
+              f"{shape['blocks_per_sm']} blocks resident per SM, pair table "
+              f"in {'shared memory' if shape['ovl_shared'] else 'L1'}")
+    q_out, full_out = E._prelude_out(Q, dev), E._prelude_out(N_MAIN, dev)
+    k3_full_maps = [getattr(s0, f).clone() for f in MAP_FIELDS]
+    shape_ms = {shape: ([], []) for shape in K3_SHAPES}
+    for _ in range(K3_ROUNDS):   # the shapes in turn, K3_ROUNDS times
+        for shape in K3_SHAPES:
+            ms_q, _ = cuda_ms(lambda: MG.launch(
+                q_in[0], *q_in[1:3], k3_maps, idx=idx, n_players=q_in[3],
+                prelude=q_out, shape=shape), reps=20, ahead=True)
+            ms_f, _ = cuda_ms(lambda: MG.launch(
+                s0.rng, s0.n_pieces, s0.difficulty, k3_full_maps,
+                n_players=s0.n_players, prelude=full_out, shape=shape),
+                reps=5, ahead=True)
+            shape_ms[shape][0].append(ms_q)
+            shape_ms[shape][1].append(ms_f)
+    for shape, runs in shape_ms.items():
+        info = MG.launch_shape(Q, shape)
+        q_ms, f_ms = (sorted(r) for r in runs)
+        print(f"phase 5: K3 shape {shape[0]} envs per block, pair table in "
+              f"{'shared memory' if shape[1] else 'L1'} "
+              f"({info['smem_bytes']} B per block, {info['blocks_per_sm']} "
+              f"blocks per SM), median (min-max) of {K3_ROUNDS} turns: "
+              f"{q_ms[K3_ROUNDS // 2]:.4f} ({q_ms[0]:.4f}-{q_ms[-1]:.4f}) ms "
+              f"per {Q}-env queue, {f_ms[K3_ROUNDS // 2]:.4f} "
+              f"({f_ms[0]:.4f}-{f_ms[-1]:.4f}) ms at {N_MAIN} envs")
     for n_envs in (N_MAIN,) + WIDE:
         shape = K.fused_step_shape(n_envs)
         sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -609,7 +712,7 @@ def main():
         fail("jax was imported")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 

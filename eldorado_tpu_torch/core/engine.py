@@ -951,9 +951,9 @@ def _step_from_view(s0: EnvState, s: EnvState, v: PView, p, action,
                     ball) -> EnvState:
     k = _k(s.rng)
     a_play, a_sp, a_rm, a_mv, a_shop = (action[i] for i in range(5))
-    w0, w1, w2, w3p = ball
-    ball_p = _decode_cells(_ball_p_ids(w0, w1, w2))
-    w3_cache = torch.where(_oh(p, k.iota4), w3p, s.w3_cache)
+    w0, w1, w2, _ = ball
+    pids = _ball_p_ids(w0, w1, w2)
+    ball_p = _decode_cells(pids)
 
     b_play = a_play > 0
     b_special = (a_play == 0) & (a_sp > 0)
@@ -1083,6 +1083,21 @@ def _step_from_view(s0: EnvState, s: EnvState, v: PView, p, action,
     et_v, saved = _end_turn_p(v)
     q = p + 1
     q = torch.where(q >= s.n_players, k.i0, q)
+
+    # the agent's one-hop word (pack_ball_words' w3). It is read when the
+    # turn next comes to the agent, where the reference reads the agent's
+    # current cell (src/environment.cpp:187-207), so a move that ends the
+    # turn (onto an end cell) stores the word of the cell it reached: ball
+    # cells pair[a_mv] around the ball's centre. The JAX engine stores the
+    # word of the cell the agent left (the ball's w3), stale until the
+    # agent's next step; any other step stores, as there, the cell it
+    # started on.
+    m = torch.where(b_move & rotate & (a_mv < 7), a_mv, k.i0)
+    hop = torch.where(_oh(m, k.iota7[:, None]), k.pair, k.i0).amax(0)
+    ring = torch.where(_oh(hop[:, None], k.iota19), pids, k.i0).amax(1)
+    w3_own = (ring[1:] << (5 * k.iota7[:6])).sum(dtype=_i32) \
+        | (_ball_at_p(ball_p, hop[0])[2] << 30)
+    w3_cache = torch.where(_oh(p, k.iota4), w3_own, s.w3_cache)
     row_q = _wrow(s.storage_masks, q)
     sel_next = torch.where(q == p, saved, row_q)
     v = _select(rotate, et_v._replace(sel=sel_next), v)

@@ -20,11 +20,12 @@ single-env generator's.
 In the JAX package this ran as XLA, outside any Pallas kernel. Here this
 module holds the plain version (`generate_map_plain`) and the wrapper of
 K3 (`launch`, csrc/mapgen.cu), the hand-written kernel that runs one env's
-generator per thread; `generate_map` takes the plain version on CPU
-tensors and K3 on CUDA tensors.
+generator per warp; `generate_map` takes the plain version on CPU tensors
+and K3 on CUDA tensors.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -472,7 +473,7 @@ generate_map_plain.cuda_trips = 0
 
 
 def launch(rng, n_pieces, difficulty, maps, idx=None, starts=None,
-           n_players=None, prelude=None) -> None:
+           n_players=None, prelude=None, shape=None) -> None:
     """Launch K3 (csrc/mapgen.cu) on the card: map generation, and with
     ``prelude`` the add_players gate and the ball rows, for q envs.
 
@@ -482,7 +483,10 @@ def launch(rng, n_pieces, difficulty, maps, idx=None, starts=None,
     ok (n,), overflow (n,) bool) are written at those rows and nowhere
     else. ``starts`` = (start_xy (q, 4, 2), start_no (q, 4)) and
     ``prelude`` = (player_xy (q, 4, 2), req, nr, end (q, 4, 19)), int32,
-    are written at 0..q-1 when given. Counted in ``generate_map.launches``.
+    are written at 0..q-1 when given. ``shape`` = (envs per block, 1-4;
+    whether the pair table is staged in shared memory) picks a launch
+    shape other than the default (`launch_shape`). Counted in
+    ``generate_map.launches``.
     """
     from ..ops import build
     from ..ops.step_kernel import _check, _device_of
@@ -521,15 +525,36 @@ def launch(rng, n_pieces, difficulty, maps, idx=None, starts=None,
         return None if t is None else t.data_ptr()
     st = starts or (None, None)
     pre = prelude or (None,) * 4
-    err = build.load().ed_generate_map(
-        rng.data_ptr(), ptr(idx), n_pieces.data_ptr(), difficulty.data_ptr(),
-        ptr(n_players if prelude is not None else None),
-        _K(dev).ovl.data_ptr(),
-        map_ids.data_ptr(), min_xy.data_ptr(), ok.data_ptr(),
-        overflow.data_ptr(), ptr(st[0]), ptr(st[1]), *map(ptr, pre), q,
-        torch.cuda.current_stream(dev).cuda_stream)
+    lib = build.load()
+    args = (rng.data_ptr(), ptr(idx), n_pieces.data_ptr(),
+            difficulty.data_ptr(),
+            ptr(n_players if prelude is not None else None),
+            _K(dev).ovl.data_ptr(), map_ids.data_ptr(), min_xy.data_ptr(),
+            ok.data_ptr(), overflow.data_ptr(), ptr(st[0]), ptr(st[1]),
+            *map(ptr, pre), q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if shape is None:
+        err = lib.ed_generate_map(*args, stream)
+    else:
+        err = lib.ed_generate_map_shaped(*args, int(shape[0]),
+                                         int(bool(shape[1])), stream)
     build.check(err, "generate_map")
     generate_map.launches += 1
+
+
+def launch_shape(q: int, shape=None) -> dict:
+    """K3's launch for a q-env queue on the current device, in the default
+    shape or ``shape`` = (envs per block, pair table in shared memory):
+    envs and threads per block, blocks, shared bytes per block, blocks
+    resident per SM, and where the pair table is."""
+    from ..ops import build
+    envs, shared = shape if shape is not None else (0, 0)
+    out = (ctypes.c_int * 5)()
+    build.check(build.load().ed_generate_map_shape(int(envs), int(shared),
+                                                   out), "generate_map_shape")
+    return {"envs_per_block": out[0], "threads": out[1],
+            "blocks": (q + out[0] - 1) // out[0], "smem_bytes": out[2],
+            "blocks_per_sm": out[3], "ovl_shared": bool(out[4])}
 
 
 def launch_out(rng, n_pieces, difficulty, n_players=None, prelude=None):

@@ -517,19 +517,12 @@ ED_HD void step_live(Env& s, const int act[5], const int ids[kBall],
   Ball ball_p;
   for (int k = 0; k < kBall; ++k)
     decode_cell(ids[k], ball_p.req[k], ball_p.nr[k], ball_p.end[k]);
-  // refresh the agent's one-hop word (engine.pack_ball_words w3)
-  uint32_t w3c[4];
-  for (int j = 0; j < 4; ++j) w3c[j] = s.w3[j];
-  {
-    uint32_t w = 0;
-    for (int i = 0; i < 6; ++i) w |= (uint32_t)ids[1 + i] << (5 * i);
-    w3c[p] = w | ((uint32_t)ball_p.end[0] << 30);
-  }
 
   const bool b_play = a_play > 0;
   const bool b_special = a_play == 0 && a_sp > 0;
   const bool b_move = a_play == 0 && a_sp == 0 && a_mv > 0;
   const bool b_else = a_play == 0 && a_sp == 0 && a_mv == 0;
+
 
   // v is player p's part of s: every write through v is a write to s.
   // Below, s is read only at the next player q != p (the rotation), never
@@ -632,6 +625,23 @@ ED_HD void step_live(Env& s, const int act[5], const int ids[kBall],
   const bool rotate = v.has_won || v.phase == 0;
   int q = p + 1;
   if (q >= n_players) q = 0;
+  // refresh the agent's one-hop word (engine.pack_ball_words w3). It is
+  // read when the turn next comes to the agent, where the reference reads
+  // the agent's current cell (its is_end ends the game,
+  // src/environment.cpp:187-207), so a move that ends the turn (onto an
+  // end cell) stores the word of the cell it reached: the ball cells
+  // PAIR[7 * a_mv + 0..6] around the ball's centre. The JAX engine stores
+  // the word of the cell the agent left, stale until the agent's next
+  // step; any other step stores, as there, the cell it started on.
+  uint32_t w3c[4];
+  for (int j = 0; j < 4; ++j) w3c[j] = s.w3[j];
+  {
+    const int m = b_move && rotate && a_mv < 7 ? a_mv : 0;
+    uint32_t w = 0;
+    for (int i = 0; i < 6; ++i)
+      w |= (uint32_t)ids[PAIR[7 * m + 1 + i]] << (5 * i);
+    w3c[p] = w | ((uint32_t)ball_p.end[PAIR[7 * m]] << 30);
+  }
   uint32_t saved[3] = {0u, 0u, 0u};
   if (rotate) {
     end_turn(v, saved);

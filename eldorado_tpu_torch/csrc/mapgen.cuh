@@ -1,5 +1,6 @@
 // K3's per-env logic: procedural map generation and the map prelude of
-// cog_env::reset, one env per thread, scalar C++.
+// cog_env::reset, one env per warp (or, through the lane shim's loop form,
+// per thread).
 //
 // Computes what eldorado_tpu_torch/core/mapgen.py (generate_map_plain,
 // itself the port of eldorado_tpu/core/mapgen.py::generate_map) and
@@ -7,14 +8,14 @@
 // reference's recursive generator (src/map.cpp:697-742 with the oracle's
 // erase-by-position patch) as a flat machine of trips over an explicit
 // frame stack. The plain version runs every branch of a trip on every lane
-// and keeps one; here each thread runs its env's taken branch only, trip
-// after trip, until the env finishes or aborts, so the draws and the
-// placements are those of one env of the plain version:
+// and keeps one; here an env's warp runs its taken branch only, trip after
+// trip, until the env finishes or aborts, so the draws and the placements
+// are those of one env of the plain version:
 //
 // * every draw is the exact rejection loop (rng.cuh's uniform_int);
-// * a child frame starts from a copy of its parent's current engine
-//   (frame_rng), and the parent resumes with its own; a push at depth
-//   kMaxDepth - 1 aborts, and the env's state freezes there;
+// * a child frame starts from a copy of its parent's current engine, and
+//   the parent resumes with its own; a push at depth kMaxDepth - 1 aborts,
+//   and the env's state freezes there;
 // * candidates are enumerated placed-slot-major, then connection index;
 //   the overlap test reads each candidate's first rotation option through
 //   the pair bit table (mapgen._build_pair_overlap, passed in as `ovl`);
@@ -25,13 +26,14 @@
 // * placement n_entries >= kMaxPlaced sets `overflow` and writes the
 //   clamped last slot; a cleared map keeps the piece transforms;
 // * the raster is last-writer-wins in (slot, hex) order, so the hexes are
-//   written in that order into a zeroed row.
+//   written in that order into a zeroed raster.
 //
 // The tables are the plain version's (core/tables.py), pinned to it by
 // tests/test_torch_tables.py. They live in global memory (ED_TABLE): the
-// threads of a warp read them at unrelated indices, which the constant
+// lanes of a warp read them at unrelated indices, which the constant
 // cache would serialise. tests/mapgen_host.cpp builds this header with
-// g++ and tests/test_torch_mapgen_host.py holds it to the plain version.
+// g++ (the lane shim's loop form) and tests/test_torch_mapgen_host.py
+// holds it to the plain version.
 #pragma once
 
 #include "engine.cuh"
@@ -333,15 +335,207 @@ ED_TABLE int CONN_ROT[3402] = {-2, -1, 0, 1, 2, 3, -2, -1, 0, 1, 2, 3, -1, 0,
     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
     0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
 
-// One env's generator: the plain version's MapGenState for one lane.
-struct MapGen {
-  int entries[kMaxPlaced];  // piece ids by slot
-  int entry_rot[kMaxPlaced], entry_x[kMaxPlaced], entry_y[kMaxPlaced];
-  int n_entries, min_x, min_y, max_x, max_y;
+// ---- lanes -----------------------------------------------------------------
+// K3 runs one env per warp. The generator's scalar chain (its draws, its
+// frame stack and its control) runs in every lane on identical values held
+// in registers, so every lane draws the same numbers from its own copy of
+// the env's engine and takes the same branches; the work that is parallel
+// over items (the candidate scan, the bounding box of a piece's hexes, the
+// raster, the ball cells) is split across the 32 lanes. The cooperative
+// steps come in two forms with one interface:
+//
+// * WarpLanes (K3): the calling warp; lane l takes item l, a ballot or a
+//   reduction is the warp's, and sync() is __syncwarp();
+// * LoopLanes: one thread runs the 32 lanes of each step in a loop, in lane
+//   order. The g++ host tests and the work count (mapgen_work.cu) run it.
+//
+// The arrays every lane reads (MapSlots, the raster) are written only by
+// the leader (lane 0), or by each lane at its own items, with a sync()
+// between the writes and every read of the words written.
+constexpr int kLanes = 32;
+constexpr uint32_t kAllLanes = 0xFFFFFFFFu;
+
+#ifdef __CUDACC__
+#define ED_LANE __device__ __forceinline__
+using Quad = int4;  // 16 bytes: one vector load or store
+#else
+#define ED_LANE inline
+struct alignas(16) Quad {
+  int x, y, z, w;
+};
+#endif
+
+// the bounding box of a set of hexes; empty, it holds the plain version's
+// starting bounds of +-2^20
+struct Box {
+  int lo_x, lo_y, hi_x, hi_y;
+};
+
+ED_HD Box empty_box() {
+  return Box{1 << 20, 1 << 20, -(1 << 20), -(1 << 20)};
+}
+
+ED_HD void box_add(Box& b, int x, int y) {
+  b.lo_x = x < b.lo_x ? x : b.lo_x;
+  b.lo_y = y < b.lo_y ? y : b.lo_y;
+  b.hi_x = x > b.hi_x ? x : b.hi_x;
+  b.hi_y = y > b.hi_y ? y : b.hi_y;
+}
+
+// the index of the n-th set bit of w (it has more than n): a binary search
+// on the set-bit counts of the lower halves
+ED_HD int nth_bit(uint32_t w, int n) {
+  int i = 0;
+  for (int s = 16; s > 0; s >>= 1) {
+    const int c = ED_POPC(w & ((1u << s) - 1u));
+    if (n >= c) {
+      n -= c;
+      w >>= s;
+      i += s;
+    }
+  }
+  return i;
+}
+
+struct LoopLanes {
+  ED_LANE static bool leader() { return true; }
+  ED_LANE static void sync() {}
+  // body(l) for every lane l
+  template <class F>
+  ED_LANE static void each(F body) {
+    for (int l = 0; l < kLanes; ++l) body(l);
+  }
+  // bit l: pred(l)
+  template <class F>
+  ED_LANE static uint32_t ballot(F pred) {
+    uint32_t bits = 0;
+    for (int l = 0; l < kLanes; ++l) bits |= (pred(l) ? 1u : 0u) << l;
+    return bits;
+  }
+  // the box of every lane's hexes; add(l, box) adds lane l's
+  template <class F>
+  ED_LANE static Box box(F add) {
+    Box b = empty_box();
+    for (int l = 0; l < kLanes; ++l) add(l, b);
+    return b;
+  }
+  // 32 words of candidate bits, word w from ballot round w
+  struct Words {
+    uint32_t w[kLanes];
+    ED_LANE void clear() {
+      for (int i = 0; i < kLanes; ++i) w[i] = 0;
+    }
+    ED_LANE void set(int i, uint32_t bits) { w[i] = bits; }
+    // the index of the pos-th set bit of the 32 words in order
+    ED_LANE int nth(int pos) const {
+      for (int i = 0;; ++i) {
+        const int cnt = ED_POPC(w[i]);
+        if (pos < cnt) return kLanes * i + nth_bit(w[i], pos);
+        pos -= cnt;
+      }
+    }
+  };
+};
+
+#ifdef __CUDACC__
+struct WarpLanes {
+  __device__ __forceinline__ static int lane() {
+    return (int)(threadIdx.x & (kLanes - 1));
+  }
+  __device__ __forceinline__ static bool leader() { return lane() == 0; }
+  __device__ __forceinline__ static void sync() { __syncwarp(); }
+  template <class F>
+  __device__ __forceinline__ static void each(F body) {
+    body(lane());
+  }
+  template <class F>
+  __device__ __forceinline__ static uint32_t ballot(F pred) {
+    return __ballot_sync(kAllLanes, pred(lane()));
+  }
+  template <class F>
+  __device__ __forceinline__ static Box box(F add) {
+    Box b = empty_box();
+    add(lane(), b);
+    return Box{__reduce_min_sync(kAllLanes, b.lo_x),
+               __reduce_min_sync(kAllLanes, b.lo_y),
+               __reduce_max_sync(kAllLanes, b.hi_x),
+               __reduce_max_sync(kAllLanes, b.hi_y)};
+  }
+  // lane l keeps word l
+  struct Words {
+    uint32_t mine;
+    __device__ __forceinline__ void clear() { mine = 0; }
+    __device__ __forceinline__ void set(int i, uint32_t bits) {
+      if (lane() == i) mine = bits;
+    }
+    // the word holding the pos-th set bit from the lanes' prefix sums of
+    // set-bit counts, then the bit within it
+    __device__ __forceinline__ int nth(int pos) const {
+      const int l = lane(), cnt = __popc(mine);
+      int incl = cnt;
+      for (int d = 1; d < kLanes; d <<= 1) {
+        const int v = __shfl_up_sync(kAllLanes, incl, d);
+        if (l >= d) incl += v;
+      }
+      const int w = __ffs(__ballot_sync(kAllLanes, incl > pos)) - 1;
+      const uint32_t word = __shfl_sync(kAllLanes, mine, w);
+      const int before = __shfl_sync(kAllLanes, incl - cnt, w);
+      return kLanes * w + nth_bit(word, pos - before);
+    }
+  };
+};
+
+// the pair table through the read-only data path (K3's global copy)
+struct OvlLdg {
+  const int* p;
+  __device__ __forceinline__ int operator[](int i) const {
+    return __ldg(p + i);
+  }
+};
+#endif
+
+// the pair table read plainly (a shared-memory copy; the host)
+struct OvlPlain {
+  const int* p;
+  ED_LANE int operator[](int i) const { return p[i]; }
+};
+
+// ---- the generator ---------------------------------------------------------
+// A placed slot as the overlap test reads it, in one 16-byte load: its
+// center, its offset into a candidate's row of the pair table (from its
+// size and rotation), and its piece id (-1: none).
+struct alignas(16) Slot {
+  int x, y, key, pid;
+};
+constexpr int kSlotPad = 3;  // the overlap test reads slots four at a time
+
+// The generator's arrays, which the lanes read: the placed slots and
+// their rotations, each piece's latest placement, and the frame stack's
+// saved frames (a parent's engine, loop index, eligible pieces and resume
+// point while its child runs).
+struct MapSlots {
+  Slot slot[kMaxPlaced + kSlotPad];
+  int entry_rot[kMaxPlaced];
   int piece_rot[kPieces], piece_x[kPieces], piece_y[kPieces];
   uint32_t frame_rng[kMaxDepth];
   int frame_i[kMaxDepth], frame_valid[kMaxDepth], frame_resume[kMaxDepth];
-  int sp, pc, finished, aborted, overflow;
+};
+
+// One env's scratch: its 48 x 48 raster, then its slots (in K3 the warp's
+// part of the block's shared memory).
+struct alignas(16) MapScratch {
+  int raster[kMapCells];
+  MapSlots s;
+};
+
+// The generator's scalars (the plain version's MapGenState without the
+// arrays), in registers, identical in every lane.
+struct MapGen {
+  MapSlots& m;
+  uint32_t rng = 0;  // the current frame's engine,
+  int i = 0, valid = 0;  // its loop index and its eligible travel pieces
+  int n_entries = 0, min_x = 0, min_y = 0, max_x = 0, max_y = 0;
+  int sp = 0, pc = 0, finished = 0, aborted = 0, overflow = 0;
 };
 
 // x mod 6 in [0, 6), as torch's % on a negative x
@@ -358,51 +552,45 @@ ED_HD void hex_xy(int size, int h, int r, int cx, int cy, int& x, int& y) {
   y = ROT[4 * r + 2] * bx + ROT[4 * r + 3] * by + cy;
 }
 
-// the index of the n-th set bit of w (it has more than n)
-ED_HD int nth_bit(uint32_t w, int n) {
-  int i = 0;
-  for (; i < 32; ++i)
-    if (((w >> i) & 1u) && n-- == 0) break;
-  return i;
-}
-
 // a draw on the current frame's engine; n < 1 clamps to 1
 ED_HD int draw(MapGen& g, int n) {
-  return (int)uniform_int(g.frame_rng[g.sp], n < 1 ? 1u : (uint32_t)n);
+  return (int)uniform_int(g.rng, n < 1 ? 1u : (uint32_t)n);
 }
 
-// Map::add_piece (src/map.cpp:309-341; mapgen._add_piece)
+// Map::add_piece (src/map.cpp:309-341; mapgen._add_piece): the piece's
+// bounding box across the lanes, then the leader writes its slot
+template <class L>
 ED_HD void add_piece(MapGen& g, int pid, int cx, int cy, int rot) {
   const int r = mod6(rot);
-  const int size = PIECE_SIZE[pid];
-  int lo_x = 1 << 20, lo_y = 1 << 20, hi_x = -(1 << 20), hi_y = -(1 << 20);
-  for (int h = 0; h < PIECE_N_HEX[pid]; ++h) {
-    int x, y;
-    hex_xy(size, h, r, cx, cy, x, y);
-    lo_x = x < lo_x ? x : lo_x;
-    lo_y = y < lo_y ? y : lo_y;
-    hi_x = x > hi_x ? x : hi_x;
-    hi_y = y > hi_y ? y : hi_y;
-  }
+  const int size = PIECE_SIZE[pid], nh = PIECE_N_HEX[pid];
+  const Box b = L::box([&](int l, Box& bx) {
+    for (int h = l; h < nh; h += kLanes) {
+      int x, y;
+      hex_xy(size, h, r, cx, cy, x, y);
+      box_add(bx, x, y);
+    }
+  });
   if (g.n_entries >= kMaxPlaced) g.overflow = 1;
   const int slot = g.n_entries < kMaxPlaced ? g.n_entries : kMaxPlaced - 1;
-  g.entries[slot] = pid;
-  g.entry_rot[slot] = r;
-  g.entry_x[slot] = cx;
-  g.entry_y[slot] = cy;
+  L::sync();  // every lane has read the slots it needed
+  if (L::leader()) {
+    g.m.slot[slot] = Slot{cx, cy, (size * 6 + r) * kOvlNd + kOvlDmax, pid};
+    g.m.entry_rot[slot] = r;
+    g.m.piece_rot[pid] = r;
+    g.m.piece_x[pid] = cx;
+    g.m.piece_y[pid] = cy;
+  }
+  L::sync();
   g.n_entries += 1;
-  g.min_x = lo_x < g.min_x ? lo_x : g.min_x;
-  g.min_y = lo_y < g.min_y ? lo_y : g.min_y;
-  g.max_x = hi_x > g.max_x ? hi_x : g.max_x;
-  g.max_y = hi_y > g.max_y ? hi_y : g.max_y;
-  g.piece_rot[pid] = r;
-  g.piece_x[pid] = cx;
-  g.piece_y[pid] = cy;
+  g.min_x = b.lo_x < g.min_x ? b.lo_x : g.min_x;
+  g.min_y = b.lo_y < g.min_y ? b.lo_y : g.min_y;
+  g.max_x = b.hi_x > g.max_x ? b.hi_x : g.max_x;
+  g.max_y = b.hi_y > g.max_y ? b.hi_y : g.max_y;
 }
 
 // the connection-table row of slot e's piece for a new piece of size nsize
 ED_HD int conn_row(const MapGen& g, int e, int nsize) {
-  const int p = g.entries[e] >= 0 ? g.entries[e] : 0;
+  const int p = g.m.slot[e].pid >= 0 ? g.m.slot[e].pid : 0;
   return (PIECE_SIZE[p] * 3 + PIECE_TYPE[p]) * 3 + nsize;
 }
 
@@ -410,96 +598,122 @@ ED_HD int conn_row(const MapGen& g, int e, int nsize) {
 // from the piece's latest placement, and that placement's rotation prot
 ED_HD void candidate(const MapGen& g, int e, int c, int k, int& x, int& y,
                      int& prot) {
-  const int p = g.entries[e] >= 0 ? g.entries[e] : 0;
-  prot = g.piece_rot[p];
+  const int p = g.m.slot[e].pid >= 0 ? g.m.slot[e].pid : 0;
+  prot = g.m.piece_rot[p];
   const int ccx = CONN_COORD[2 * (c * kMaxConn + k)];
   const int ccy = CONN_COORD[2 * (c * kMaxConn + k) + 1];
-  x = ROT[4 * prot] * ccx + ROT[4 * prot + 1] * ccy + g.piece_x[p];
-  y = ROT[4 * prot + 2] * ccx + ROT[4 * prot + 3] * ccy + g.piece_y[p];
+  x = ROT[4 * prot] * ccx + ROT[4 * prot + 1] * ccy + g.m.piece_x[p];
+  y = ROT[4 * prot + 2] * ccx + ROT[4 * prot + 3] * ccy + g.m.piece_y[p];
+}
+
+// Candidate b = e * kMaxConn + k (connection k of slot e) is free for a
+// piece of size nsize: b names a connection, and the piece placed there in
+// the connection's first rotation option overlaps no placed slot (through
+// the pair bit table, mapgen._build_pair_overlap). The slots are tested
+// four at a time, so that their loads are in flight together: a slot's
+// center delta is clamped into the table's window, which keeps every
+// index in the table, and the window test masks the bit.
+template <class Ovl>
+ED_HD bool is_free(const MapGen& g, int b, int nsize, int placed, Ovl ovl) {
+  const int e = b / kMaxConn, k = b - e * kMaxConn;
+  if (e >= placed) return false;
+  const int c = conn_row(g, e, nsize);
+  if (k >= CONN_N[c]) return false;
+  int x, y, prot;
+  candidate(g, e, c, k, x, y, prot);
+  const int row = (nsize * 6 + mod6(CONN_ROT[6 * (c * kMaxConn + k)] + prot))
+                  * 3 * 6 * kOvlNd;
+  bool hit = false;
+  for (int f0 = 0; f0 < placed && !hit; f0 += 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const Slot sl = g.m.slot[f0 + j];
+      const int dx = x - sl.x, dy = y - sl.y;
+      const bool near = f0 + j < placed && dx >= -kOvlDmax &&
+                        dx <= kOvlDmax && dy >= -kOvlDmax && dy <= kOvlDmax;
+      const int cx = dx < -kOvlDmax ? -kOvlDmax : dx > kOvlDmax ? kOvlDmax : dx;
+      const int cy = dy < -kOvlDmax ? -kOvlDmax : dy > kOvlDmax ? kOvlDmax : dy;
+      hit |= near & (((ovl[row + sl.key + cx] >> (cy + kOvlDmax)) & 1) != 0);
+    }
+  }
+  return !hit;
 }
 
 // Map::try_add_random (src/map.cpp:277-307; mapgen._try_add_random):
 // places piece pid at a random free connection; false (and no draw) when
-// none is free.
-ED_HD bool try_add_random(MapGen& g, int pid, const int* ovl) {
+// none is free. Candidates are enumerated placed-slot-major, then by
+// connection index: ballot round w tests candidates 32w to 32w + 31, one a
+// lane, and its ballot is word w of the free candidates' bits; the pos-th
+// free candidate is drawn, then its rotation.
+template <class L, class Ovl>
+ED_HD bool try_add_random(MapGen& g, int pid, Ovl ovl) {
   const int nsize = PIECE_SIZE[pid];
   const int placed = g.n_entries < kMaxPlaced ? g.n_entries : kMaxPlaced;
-  uint32_t free_bits[(kMaxPlaced * kMaxConn + 31) / 32];
-  for (int w = 0; w < (kMaxPlaced * kMaxConn + 31) / 32; ++w) free_bits[w] = 0;
+  const int rounds = (placed * kMaxConn + kLanes - 1) / kLanes;
+  typename L::Words words;
+  words.clear();
   int n_free = 0;
-  for (int e = 0; e < placed; ++e) {
-    const int c = conn_row(g, e, nsize);
-    for (int k = 0; k < CONN_N[c]; ++k) {
-      int x, y, prot;
-      candidate(g, e, c, k, x, y, prot);
-      const int base =
-          (nsize * 6 + mod6(CONN_ROT[6 * (c * kMaxConn + k)] + prot)) * 3;
-      bool hit = false;
-      for (int f = 0; f < placed && !hit; ++f) {
-        const int dx = x - g.entry_x[f], dy = y - g.entry_y[f];
-        if (dx < -kOvlDmax || dx > kOvlDmax || dy < -kOvlDmax ||
-            dy > kOvlDmax)
-          continue;
-        const int fp = g.entries[f] >= 0 ? g.entries[f] : 0;
-        const int w = ovl[((base + PIECE_SIZE[fp]) * 6 + g.entry_rot[f]) *
-                              kOvlNd + dx + kOvlDmax];
-        hit = (w >> (dy + kOvlDmax)) & 1;
-      }
-      if (!hit) {
-        const int b = e * kMaxConn + k;
-        free_bits[b >> 5] |= 1u << (b & 31);
-        ++n_free;
-      }
-    }
+  for (int w = 0; w < rounds; ++w) {
+    const uint32_t bits = L::ballot([&](int l) {
+      return is_free(g, kLanes * w + l, nsize, placed, ovl);
+    });
+    words.set(w, bits);
+    n_free += ED_POPC(bits);
   }
   if (n_free == 0) return false;
-  int pos = draw(g, n_free), b = 0;
-  for (int w = 0;; ++w) {
-    const int cnt = ED_POPC(free_bits[w]);
-    if (pos < cnt) {
-      b = 32 * w + nth_bit(free_bits[w], pos);
-      break;
-    }
-    pos -= cnt;
-  }
+  const int b = words.nth(draw(g, n_free));
   const int pe = b / kMaxConn, pk = b % kMaxConn;
   const int c = conn_row(g, pe, nsize);
   int x, y, prot;
   candidate(g, pe, c, pk, x, y, prot);
   const int r = draw(g, CONN_NROT[c * kMaxConn + pk]);
-  add_piece(g, pid, x, y, CONN_ROT[6 * (c * kMaxConn + pk) + r] + prot);
+  add_piece<L>(g, pid, x, y, CONN_ROT[6 * (c * kMaxConn + pk) + r] + prot);
   return true;
 }
 
-// generate(..., failures + 1, <engine copy>) (mapgen._push_child)
+// generate(..., failures + 1, <engine copy>) (mapgen._push_child): the
+// leader saves the parent's frame; the child starts from a copy of the
+// parent's engine. A push at depth kMaxDepth - 1 aborts, and the env's
+// state freezes there.
+template <class L>
 ED_HD void push_child(MapGen& g, int resume) {
-  g.frame_resume[g.sp] = resume;
   if (g.sp >= kMaxDepth - 1) {
     g.aborted = 1;
     return;
   }
-  g.frame_rng[g.sp + 1] = g.frame_rng[g.sp];
+  L::sync();
+  if (L::leader()) {
+    g.m.frame_rng[g.sp] = g.rng;
+    g.m.frame_i[g.sp] = g.i;
+    g.m.frame_valid[g.sp] = g.valid;
+    g.m.frame_resume[g.sp] = resume;
+  }
+  L::sync();
   g.sp += 1;
   g.pc = PC_ENTRY;
 }
 
 // one trip of the generator (mapgen._trip) for an env still running; the
 // loop and end branches share one placement attempt
-ED_HD void trip(MapGen& g, int n_pieces, int difficulty, const int* ovl) {
-  const int i = g.frame_i[g.sp];
+template <class L, class Ovl>
+ED_HD void trip(MapGen& g, int n_pieces, int difficulty, Ovl ovl) {
+  const int i = g.i;
   if (g.pc == PC_ENTRY) {
-    add_piece(g, draw(g, 2), 0, 0, 0);  // start piece 0 or 1
-    g.frame_valid[g.sp] = DIFF_MASK[difficulty];
-    g.frame_i[g.sp] = 0;
+    add_piece<L>(g, draw(g, 2), 0, 0, 0);  // start piece 0 or 1
+    g.valid = DIFF_MASK[difficulty];
+    g.i = 0;
     g.pc = PC_LOOP;
   } else if (g.pc == PC_POP) {
     if (g.sp == 0) {
       g.finished = 1;
       return;
     }
-    g.sp -= 1;
-    const bool inc = g.frame_resume[g.sp] == RES_LOOP_INC;
-    if (inc) g.frame_i[g.sp] += 1;
+    g.sp -= 1;  // the parent resumes with its own engine
+    g.rng = g.m.frame_rng[g.sp];
+    g.i = g.m.frame_i[g.sp];
+    g.valid = g.m.frame_valid[g.sp];
+    const bool inc = g.m.frame_resume[g.sp] == RES_LOOP_INC;
+    if (inc) g.i += 1;
     g.pc = inc ? PC_LOOP : PC_POP;
   } else if (g.pc == PC_LOOP && i >= n_pieces) {
     g.pc = PC_END;
@@ -507,7 +721,7 @@ ED_HD void trip(MapGen& g, int n_pieces, int difficulty, const int* ovl) {
     // the loop draws one of the frame's eligible travel pieces, the end
     // branch one of the two end pieces
     const bool loop = g.pc == PC_LOOP;
-    const uint32_t valid = (uint32_t)g.frame_valid[g.sp] & 0xFFFFu;
+    const uint32_t valid = (uint32_t)g.valid & 0xFFFFu;
     const int nv = ED_POPC(valid);
     int pid;
     if (loop) {
@@ -515,88 +729,76 @@ ED_HD void trip(MapGen& g, int n_pieces, int difficulty, const int* ovl) {
     } else {
       pid = kEndPiece0 + draw(g, 2);
     }
-    const bool placed = (!loop || nv > 0) && try_add_random(g, pid, ovl);
+    const bool placed =
+        (!loop || nv > 0) && try_add_random<L>(g, pid, ovl);
     if (loop && placed) {
-      g.frame_valid[g.sp] &= ~(1 << (pid - kTravelPiece0));
-      g.frame_i[g.sp] = i + 1;
+      g.valid &= ~(1 << (pid - kTravelPiece0));
+      g.i = i + 1;
     } else if (loop) {
-      push_child(g, RES_LOOP_INC);
+      push_child<L>(g, RES_LOOP_INC);
     } else if (placed) {
       g.pc = PC_POP;
     } else {  // Map::reset (src/map.cpp:744-752), then a retry
-      for (int e = 0; e < kMaxPlaced; ++e) g.entries[e] = -1;
+      L::sync();
+      L::each([&](int l) {
+        for (int e = l; e < kMaxPlaced; e += kLanes) g.m.slot[e].pid = -1;
+      });
+      L::sync();
       g.n_entries = g.min_x = g.min_y = g.max_x = g.max_y = 0;
-      push_child(g, RES_POP);
+      push_child<L>(g, RES_POP);
     }
   }
 }
 
 // the whole generator from engine state `rng`, consumed by value
+template <class L, class Ovl>
 ED_HD void generate(MapGen& g, uint32_t rng, int n_pieces, int difficulty,
-                    const int* ovl) {
-  for (int e = 0; e < kMaxPlaced; ++e) {
-    g.entries[e] = -1;
-    g.entry_rot[e] = g.entry_x[e] = g.entry_y[e] = 0;
-  }
-  for (int p = 0; p < kPieces; ++p)
-    g.piece_rot[p] = g.piece_x[p] = g.piece_y[p] = 0;
-  for (int d = 0; d < kMaxDepth; ++d) {
-    g.frame_rng[d] = rng;
-    g.frame_i[d] = g.frame_valid[d] = g.frame_resume[d] = 0;
-  }
+                    Ovl ovl) {
+  L::each([&](int l) {
+    for (int e = l; e < kMaxPlaced + kSlotPad; e += kLanes)
+      g.m.slot[e] = Slot{0, 0, kOvlDmax, -1};
+    for (int e = l; e < kMaxPlaced; e += kLanes) g.m.entry_rot[e] = 0;
+    for (int p = l; p < kPieces; p += kLanes)
+      g.m.piece_rot[p] = g.m.piece_x[p] = g.m.piece_y[p] = 0;
+  });
+  L::sync();
+  g.rng = rng;
+  g.i = g.valid = 0;
   g.n_entries = g.min_x = g.min_y = g.max_x = g.max_y = 0;
   g.sp = g.pc = g.finished = g.aborted = g.overflow = 0;
   difficulty = difficulty < 0 ? 0 : difficulty > 2 ? 2 : difficulty;
-  while (!g.finished && !g.aborted) trip(g, n_pieces, difficulty, ovl);
+  while (!g.finished && !g.aborted) trip<L>(g, n_pieces, difficulty, ovl);
 }
 
-// the final rasterisation (src/map.cpp:389-405; mapgen._finalize) into a
-// zeroed (48 x 48) row of cell-type ids: hexes in (slot, hex) order, the
-// last writer wins
-ED_HD void raster(const MapGen& g, int* row) {
+// the final rasterisation (src/map.cpp:389-405; mapgen._finalize) into the
+// (48 x 48) raster of cell-type ids: zeroed, then the hexes in (slot, hex)
+// order, the last writer winning. A piece's hexes share their coordinates'
+// parities, so within a slot they fall on distinct cells and the lanes
+// write them at once; a sync orders one slot's writes before the next's.
+template <class L>
+ED_HD void raster(const MapGen& g, int* ids) {
+  L::each([&](int l) {
+    Quad* q = reinterpret_cast<Quad*>(ids);
+    for (int j = l; j < kMapCells / 4; j += kLanes) q[j] = Quad{0, 0, 0, 0};
+  });
+  L::sync();
   const int placed = g.n_entries < kMaxPlaced ? g.n_entries : kMaxPlaced;
   for (int e = 0; e < placed; ++e) {
-    const int pid = g.entries[e];
-    for (int h = 0; h < PIECE_N_HEX[pid]; ++h) {
-      int x, y;
-      hex_xy(PIECE_SIZE[pid], h, g.entry_rot[e], g.entry_x[e], g.entry_y[e],
-             x, y);
-      const int ix = ((x - g.min_x) >> 1) + 1, iy = ((y - g.min_y) >> 1) + 1;
-      if (ix >= 0 && ix < kGrid && iy >= 0 && iy < kGrid) {
-        const int p = PIECE_PACKED[pid * kMaxHex + h];
-        row[ix * kGrid + iy] = cell_type_id(p & 7, (p >> 3) & 7, (p >> 6) & 1);
+    const Slot sl = g.m.slot[e];
+    const int pid = sl.pid, r = g.m.entry_rot[e], cx = sl.x, cy = sl.y;
+    const int size = PIECE_SIZE[pid], nh = PIECE_N_HEX[pid];
+    L::each([&](int l) {
+      for (int h = l; h < nh; h += kLanes) {
+        int x, y;
+        hex_xy(size, h, r, cx, cy, x, y);
+        const int ix = ((x - g.min_x) >> 1) + 1, iy = ((y - g.min_y) >> 1) + 1;
+        if (ix >= 0 && ix < kGrid && iy >= 0 && iy < kGrid) {
+          const int p = PIECE_PACKED[pid * kMaxHex + h];
+          ids[ix * kGrid + iy] = cell_type_id(p & 7, (p >> 3) & 7, (p >> 6) & 1);
+        }
       }
-    }
-  }
-}
-
-// the start positions: slot 0's first four hexes and its piece's start
-// numbers (piece 0 where slot 0 is empty)
-ED_HD void start_positions(const MapGen& g, int xy[2 * kPlayers],
-                           int no[kPlayers]) {
-  const int pid = g.entries[0] >= 0 ? g.entries[0] : 0;
-  for (int j = 0; j < kPlayers; ++j) {
-    hex_xy(PIECE_SIZE[pid], j, g.entry_rot[0], g.entry_x[0], g.entry_y[0],
-           xy[2 * j], xy[2 * j + 1]);
-    no[j] = PIECE_START[kPlayers * pid + j];
-  }
-}
-
-// The prelude of reset_map_prelude: add_players (src/map.cpp:343-354) and
-// every player's 19-cell ball (engine._ball_cells_xy) from the env's map
-// row; req / nr / end are (4, 19).
-ED_HD void map_prelude(const int* row, int mx, int my,
-                       const int sxy[2 * kPlayers], const int sno[kPlayers],
-                       int n_players, int* xy, int* req, int* nr, int* end) {
-  for (int p = 0; p < kPlayers; ++p) {
-    const bool gate = sno[p] > 0 && sno[p] < n_players + 1 && p < n_players;
-    xy[2 * p] = gate ? sxy[2 * p] : 0;
-    xy[2 * p + 1] = gate ? sxy[2 * p + 1] : 0;
-    int ids[kBall];
-    ball_ids(row, mx, my, xy[2 * p], xy[2 * p + 1], ids);
-    for (int k = 0; k < kBall; ++k)
-      decode_cell(ids[k], req[kBall * p + k], nr[kBall * p + k],
-                  end[kBall * p + k]);
+    });
+    L::sync();
   }
 }
 
@@ -610,8 +812,8 @@ struct MapArgs {
   const int* n_pieces;    // (n,)
   const int* difficulty;  // (n,)
   const int* n_players;   // (n,)
-  const int* ovl;         // (kOvlWords,) pair bit table
-  int* map_ids;           // (n, 2304); each row zeroed before map_env
+  const int* ovl;         // (kOvlWords,) pair bit table, 16-byte aligned
+  int* map_ids;           // (n, 2304), 16-byte aligned
   int* min_xy;            // (n, 2)
   unsigned char* ok;      // (n,) bool
   unsigned char* overflow;
@@ -626,30 +828,74 @@ struct MapArgs {
 
 ED_HD int map_row(const MapArgs& a, int e) { return a.idx ? a.idx[e] : e; }
 
-// Env e: its generation, raster, flags, start positions and prelude.
-ED_HD void map_env(const MapArgs& a, int e) {
+// The start positions (slot 0's first four hexes and its piece's start
+// numbers; piece 0 where slot 0 is empty) and the prelude of
+// reset_map_prelude: add_players (src/map.cpp:343-354) and every player's
+// 19-cell ball (engine._ball_cells_xy) read from the env's raster, a
+// lane per cell.
+template <class L>
+ED_HD void map_prelude(const MapArgs& a, int e, int row, const MapGen& g,
+                       const int* ids) {
+  const Slot s0 = g.m.slot[0];
+  const int pid = s0.pid >= 0 ? s0.pid : 0;
+  const int size = PIECE_SIZE[pid], r = g.m.entry_rot[0];
+  const int cx = s0.x, cy = s0.y;
+  const int np = a.player_xy ? a.n_players[row] : 0;
+  L::each([&](int l) {
+    if (l < kPlayers) {
+      int x, y;
+      hex_xy(size, l, r, cx, cy, x, y);
+      if (a.start_xy) {
+        a.start_xy[2 * kPlayers * e + 2 * l] = x;
+        a.start_xy[2 * kPlayers * e + 2 * l + 1] = y;
+      }
+      if (a.start_no) a.start_no[kPlayers * e + l] = PIECE_START[kPlayers * pid + l];
+    }
+    if (!a.player_xy) return;
+    for (int j = l; j < kPlayers * kBall; j += kLanes) {
+      const int p = j / kBall, k = j - p * kBall;
+      int x, y;
+      hex_xy(size, p, r, cx, cy, x, y);
+      const int no = PIECE_START[kPlayers * pid + p];
+      const bool gate = no > 0 && no < np + 1 && p < np;
+      x = gate ? x : 0;
+      y = gate ? y : 0;
+      if (k == 0) {
+        a.player_xy[2 * kPlayers * e + 2 * p] = x;
+        a.player_xy[2 * kPlayers * e + 2 * p + 1] = y;
+      }
+      const int ix = grid_index(x + BALL[2 * k] - g.min_x);
+      const int iy = grid_index(y + BALL[2 * k + 1] - g.min_y);
+      const bool in_grid = ix >= 0 && ix < kGrid && iy >= 0 && iy < kGrid;
+      const size_t o = (size_t)e * kPlayers * kBall + j;
+      decode_cell(in_grid ? ids[ix * kGrid + iy] : 0, a.req[o], a.nr[o],
+                  a.end[o]);
+    }
+  });
+}
+
+// Env e: its generation, raster (staged in the scratch, then written to
+// the batch row whole, 16 bytes a lane per store), flags, start positions
+// and prelude.
+template <class L, class Ovl>
+ED_HD void map_env(const MapArgs& a, int e, MapScratch& sc, Ovl ovl) {
   const int row = map_row(a, e);
-  MapGen g;
-  generate(g, (uint32_t)a.rng[row], a.n_pieces[row], a.difficulty[row],
-           a.ovl);
-  int* ids = a.map_ids + (size_t)row * kMapCells;
-  raster(g, ids);
-  a.min_xy[2 * row] = g.min_x;
-  a.min_xy[2 * row + 1] = g.min_y;
-  a.ok[row] = !(g.aborted || g.overflow);
-  a.overflow[row] = g.overflow && !g.aborted;
-  int sxy[2 * kPlayers], sno[kPlayers];
-  start_positions(g, sxy, sno);
-  for (int j = 0; a.start_xy && j < 2 * kPlayers; ++j)
-    a.start_xy[2 * kPlayers * e + j] = sxy[j];
-  for (int j = 0; a.start_no && j < kPlayers; ++j)
-    a.start_no[kPlayers * e + j] = sno[j];
-  if (a.player_xy) {
-    const size_t b = (size_t)e * kPlayers * kBall;
-    map_prelude(ids, g.min_x, g.min_y, sxy, sno, a.n_players[row],
-                a.player_xy + 2 * kPlayers * e, a.req + b, a.nr + b,
-                a.end + b);
+  MapGen g{sc.s};
+  generate<L>(g, (uint32_t)a.rng[row], a.n_pieces[row], a.difficulty[row],
+              ovl);
+  raster<L>(g, sc.raster);
+  L::each([&](int l) {
+    const Quad* src = reinterpret_cast<const Quad*>(sc.raster);
+    Quad* dst = reinterpret_cast<Quad*>(a.map_ids + (size_t)row * kMapCells);
+    for (int j = l; j < kMapCells / 4; j += kLanes) dst[j] = src[j];
+  });
+  if (L::leader()) {
+    a.min_xy[2 * row] = g.min_x;
+    a.min_xy[2 * row + 1] = g.min_y;
+    a.ok[row] = !(g.aborted || g.overflow);
+    a.overflow[row] = g.overflow && !g.aborted;
   }
+  map_prelude<L>(a, e, row, g, sc.raster);
 }
 
 }  // namespace ed

@@ -49,6 +49,11 @@ _ENTRIES = {
     # rng, idx, n_pieces, difficulty, n_players, ovl, map_ids, min_xy, ok,
     # overflow, start_xy, start_no, player_xy, req, nr, end, q, stream
     "ed_generate_map": [_P] * 16 + [_I] + [_P],
+    # the same, then envs_per_block, ovl_shared before the stream
+    "ed_generate_map_shaped": [_P] * 16 + [_I] * 3 + [_P],
+    # envs_per_block, ovl_shared; out: envs per block, threads per block,
+    # shared bytes per block, blocks per SM, ovl_shared
+    "ed_generate_map_shape": [_I] * 2 + [_P],
     # carry_in, carry_out, rows, n, stream
     "ed_null_copy": [_P] * 2 + [_I] * 2 + [_P],
     # x, y, out, count, k, sel, stream

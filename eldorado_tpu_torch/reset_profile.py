@@ -13,7 +13,8 @@ sampler_init(42, 4096), one warm-up chunk of 1500 steps) it
 2. takes 3 reset queues of 128 envs from the resulting mid-game carry
    and times, on copies of the batch, K3 (map generation and the
    prelude, writing the queue's map rows) and K2 (in place) with CUDA
-   events over 20 launches each, and the whole queued reset
+   events over 20 launches each, enqueued behind a spin of the card so
+   that the events time the device alone, and the whole queued reset
    (`vec._reset_columns`: K3, K2 and the queue's flags) between
    ``torch.cuda.synchronize()`` calls; beside them, once per queue, the
    plain generator and prelude on the same rows, the column K3 is
@@ -63,9 +64,14 @@ def _synced_ms(fn):
 
 
 def _event_ms(fn, reps=20):
+    """Device milliseconds per call of ``fn``'s launches: the card spins
+    first (about 25 ms), so that all ``reps`` calls are enqueued before it
+    starts them and the events time the device, not the host's Python
+    between launches that are shorter than it."""
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(reps):
         fn()

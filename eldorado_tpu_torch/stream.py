@@ -190,9 +190,13 @@ class RingConsumer(threading.Thread):
 
     def _drain(self):
         while True:
+            # the stop flag is read before the pop: every block was pushed
+            # before the flag was set, so a pop that finds the ring empty
+            # after the flag was seen has taken the last block
+            stopping = self._stopping.is_set()
             buf = self.ring.pop()
             if buf is None:
-                if self._stopping.is_set():
+                if stopping:
                     return
                 time.sleep(0.0005)
                 continue

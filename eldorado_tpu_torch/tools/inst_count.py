@@ -50,6 +50,9 @@ PTX_FLAGS = ("-arch=compute_90a", "-std=c++17", "-O3", "--fmad=false",
 # that instantiates each, and a pattern of its mangled entry name
 K1_SOURCE = {0: "step_kernel.cu", 5: "step_compact.cu", 40: "step_full.cu"}
 K1_ENTRY = "fused_step_kernelILb{null}ELi{rec}E"
+# K3's work counted one thread per env (not part of the library)
+K3_WORK_SOURCE = "mapgen_work.cu"
+PTX_SOURCES = build.SOURCES + (K3_WORK_SOURCE,)
 _LABEL = re.compile(r"^\$?[\w$]+:$")
 
 
@@ -60,7 +63,7 @@ def _ptx_path(source: str) -> Path:
     return build.BUILD_DIR / f"{source}_{h.hexdigest()[:16]}.ptx"
 
 
-def build_ptx(sources=build.SOURCES) -> None:
+def build_ptx(sources=PTX_SOURCES) -> None:
     """Compile the PTX of each of ``sources`` (in csrc/) that is not built
     yet, one ``nvcc -ptx`` each, all at once, into the build directory,
     named by a hash of the sources and flags."""
@@ -320,23 +323,44 @@ def count_k2(carry, n_players, player_xy, req, nr, end, idx=None) -> dict:
          nr, end, carry.shape[1], q])
 
 
-def count_k3(rng, n_pieces, difficulty, n_players, idx) -> dict:
-    """Instructions K3's threads execute, by kind, for map generation and
-    the prelude of the envs ``idx`` of these (n,) batch arrays, as
-    `engine.reset_map_prelude_rows` launches K3 (csrc/mapgen.cu: one warp
-    per block), into scratch outputs."""
+def _k3_args(rng, n_pieces, difficulty, n_players, idx) -> list:
+    """K3's arguments for map generation and the prelude of the envs
+    ``idx`` of these (n,) batch arrays, as `engine.reset_map_prelude_rows`
+    passes them, into scratch outputs."""
     from ..core import engine as E
     from ..core import mapgen as MG
     n, q, dev = rng.shape[0], idx.shape[0], rng.device
 
     def z(*shape, dtype=torch.int32):
         return torch.empty(shape, dtype=dtype, device=dev)
-    return counter("mapgen.cu", "generate_map_kernel")(
+    return [rng, idx, n_pieces, difficulty, n_players, MG._K(dev).ovl,
+            z(n, E.GRIDSIZE * E.GRIDSIZE), z(n, 2), z(n, dtype=torch.bool),
+            z(n, dtype=torch.bool), None, None, z(q, 4, 2),
+            z(q, 4, E.N_BALL), z(q, 4, E.N_BALL), z(q, 4, E.N_BALL), q]
+
+
+def count_k3(rng, n_pieces, difficulty, n_players, idx) -> dict:
+    """Instructions K3's threads execute, by kind, for map generation and
+    the prelude of the envs ``idx`` of these (n,) batch arrays, launched
+    as the library launches K3 (csrc/mapgen.cu, the default shape: one
+    warp per env), summed over every lane of each env's warp."""
+    from ..core import mapgen as MG
+    shape = MG.launch_shape(idx.shape[0])
+    pattern = f"generate_map_kernelILb{int(shape['ovl_shared'])}E"
+    return counter("mapgen.cu", pattern)(
+        shape["blocks"], shape["threads"], shape["smem_bytes"],
+        _k3_args(rng, n_pieces, difficulty, n_players, idx))
+
+
+def count_k3_work(rng, n_pieces, difficulty, n_players, idx) -> dict:
+    """The instructions of K3's work on the same inputs, by kind: the same
+    per-env code run one thread per env through the lane shim's loop form
+    (csrc/mapgen_work.cu), so each candidate is tested once and the
+    scalar chain runs once per env, not once in every lane of a warp."""
+    q = idx.shape[0]
+    return counter(K3_WORK_SOURCE, "generate_map_work_kernel")(
         (q + 31) // 32, 32, 0,
-        [rng, idx, n_pieces, difficulty, n_players, MG._K(dev).ovl,
-         z(n, E.GRIDSIZE * E.GRIDSIZE), z(n, 2), z(n, dtype=torch.bool),
-         z(n, dtype=torch.bool), None, None, z(q, 4, 2), z(q, 4, E.N_BALL),
-         z(q, 4, E.N_BALL), z(q, 4, E.N_BALL), q])
+        _k3_args(rng, n_pieces, difficulty, n_players, idx))
 
 
 def count_p3(carry, srng, static, n_steps: int, cut: int) -> dict:

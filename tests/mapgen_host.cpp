@@ -1,10 +1,9 @@
 // K3's per-env work (ed::map_env of eldorado_tpu_torch/csrc/mapgen.cuh) as
 // a host function, for tests/test_torch_mapgen_host.py: g++ builds it,
 // ctypes loads it. It takes the arguments of ed_generate_map
-// (csrc/mapgen.cu) without the stream, zeroes each env's map row as the
-// kernel's warp does, and runs the envs one after another.
-#include <string.h>
-
+// (csrc/mapgen.cu) without the stream and runs the envs one after another,
+// each through the lane shim's loop form (ed::LoopLanes: one thread runs
+// the 32 lanes of every cooperative step of K3's warp in lane order).
 #include "mapgen.cuh"
 
 extern "C" int ed_host_generate_map(
@@ -17,10 +16,8 @@ extern "C" int ed_host_generate_map(
                          ovl,      map_ids,  min_xy,   ok,         overflow,
                          start_xy, start_no, player_xy, req,       nr,
                          end,      q};
-  for (int e = 0; e < q; ++e) {
-    memset(map_ids + (size_t)ed::map_row(a, e) * ed::kMapCells, 0,
-           sizeof(int) * ed::kMapCells);
-    ed::map_env(a, e);
-  }
+  static ed::MapScratch scratch;
+  for (int e = 0; e < q; ++e)
+    ed::map_env<ed::LoopLanes>(a, e, scratch, ed::OvlPlain{ovl});
   return 0;
 }

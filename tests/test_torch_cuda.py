@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain versions on the card: K1 (with and
 without the learner feed's records), K2 (new columns and in place), K3
-(map generation and its prelude) and K1's cost probes (K1-null, P1 null
-copy, P2 op chain, P3 step prefix); and the rollout and the feed, CUDA
-against CPU.
+(map generation and its prelude, in every launch shape) and K1's cost
+probes (K1-null, P1 null copy, P2 op chain, P3 step prefix); the rollout
+and the feed, CUDA against CPU; and the card path (K1, then K3 and K2 at
+every game's end) against the 11 trajectory goldens at full length.
 
 Marked ``cuda``: skipped where torch sees no GPU. On the machine with the
 card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 import eldorado_tpu_torch as et
+import traj_replay as TR
 from eldorado_tpu_torch import stream as S
 from eldorado_tpu_torch.core import engine as TE
 from eldorado_tpu_torch.core import mapgen as MG
@@ -171,15 +173,76 @@ def _k3_equals_plain(rng, n_pieces, difficulty, n_players):
     return pgen
 
 
-@pytest.mark.parametrize("n", [1, 33, 4097])
+@pytest.mark.parametrize("n", [1, 33, 129, 4097])
 def test_k3_equals_plain(dev, n):
-    """K3 (one launch: generation and prelude) == the plain generator and
-    prelude on the card, every lane and field, at env counts that leave a
-    ragged last block."""
+    """K3 (one launch: generation and prelude, one warp per env) == the
+    plain generator and prelude on the card, every lane and field, at env
+    counts that are no multiple of the block's envs."""
     before = MG.generate_map.launches
     st = TE.make_state(torch.arange(n, device=dev) + 12345, 4, 3, 0, 100)
     _k3_equals_plain(st.rng, st.n_pieces, st.difficulty, st.n_players)
     assert MG.generate_map.launches == before + 1
+    shape = MG.launch_shape(n)
+    assert shape["threads"] == 32 * shape["envs_per_block"]
+    assert shape["blocks"] == -(-n // shape["envs_per_block"])
+    assert shape["blocks_per_sm"] >= 1
+
+
+@pytest.mark.parametrize("ovl_shared", [False, True])
+@pytest.mark.parametrize("envs", [1, 2, 3, 4])
+def test_k3_launch_shapes_equal_plain(dev, envs, ovl_shared):
+    """Every launch shape (1-4 envs a block; the pair table through L1 or
+    in shared memory) writes the plain version's rows on a ragged queue of
+    the mixed batch (aborted and overflow lanes), and no other row."""
+    seeds, players, pieces, diff = MG.mixed_batch(300, seed=5)
+    st = TE.make_state(torch.as_tensor(seeds, device=dev), players, pieces,
+                       diff, 100)
+    idx = torch.cat([torch.arange(0, 252, 2), torch.arange(297, 300)]).to(
+        device=dev, dtype=torch.int32)   # 129 rows, the overflow lanes last
+    rows = idx.long()
+    maps = [t.clone() for t in (st.map_ids, st.min_xy, st.map_ok,
+                                st.map_overflow)]
+    before = [t.clone() for t in maps]
+    pre = TE._prelude_out(idx.shape[0], dev)
+    MG.launch(st.rng, st.n_pieces, st.difficulty, maps, idx=idx,
+              n_players=st.n_players, prelude=pre, shape=(envs, ovl_shared))
+    pgen, pxy, pball = TE.reset_map_prelude_plain(
+        st.rng[rows], st.n_pieces[rows], st.difficulty[rows],
+        st.n_players[rows])
+    keep = torch.ones(300, dtype=torch.bool, device=dev)
+    keep[rows] = False
+    for t, b, want in zip(maps, before, (pgen.ids, pgen.min_xy, pgen.ok,
+                                         pgen.overflow)):
+        assert torch.equal(t[rows], want)
+        assert torch.equal(t[keep], b[keep])
+    assert torch.equal(pre[0], pxy)
+    for a, b in zip(pre[1:], pball):
+        assert torch.equal(a, b)
+    assert bool(pgen.overflow[-3:].all())
+    shape = MG.launch_shape(129, (envs, ovl_shared))
+    assert shape["blocks"] == -(-129 // envs)
+    assert shape["smem_bytes"] >= envs * (4 * TE.GRIDSIZE ** 2) + (
+        4 * MG._K(dev).ovl.numel() if ovl_shared else 0)
+
+
+@pytest.mark.parametrize("mask_src", [0, 1])
+def test_card_path_replays_trajectory_goldens(dev, mask_src):
+    """The probe loop on the card, one env per golden of the mask source,
+    at each golden's full length: one K1 launch per step, then K3 and K2
+    on the envs whose game ended (tests/traj_replay.py). Every compared
+    field of every step and every reset map equal to the oracle's,
+    traj_win_storage's 20,000 steps with its two won games included."""
+    names = [n for n in TR.NAMES if TR.probe_params(n)[0] == mask_src]
+    ds = {n: TR.load(n) for n in names}
+    steps = max(TR.header(d)[-1] for d in ds.values())
+    before = MG.generate_map.launches, K.fused_reset.launches
+    trajs = TR.replay(names, steps, dev)
+    for name, traj in zip(names, trajs):
+        TR.check(name, ds[name], traj, TR.header(ds[name])[-1])
+    resets = sum(len(t.maps) - 1 for t in trajs)
+    assert resets > 0
+    assert MG.generate_map.launches - before[0] > 0
+    assert K.fused_reset.launches - before[1] > 0
 
 
 def test_k3_mixed_batch_equals_plain(dev):

@@ -3,7 +3,10 @@
 K3's per-env work (``ed::map_env``: the generator, the raster, the start
 positions and the prelude's add_players gate and ball rows) is built with
 g++ around tests/mapgen_host.cpp, with ed_generate_map's arguments, and
-run on the CPU. It is held to `mapgen.generate_map_plain` plus the plain
+run on the CPU through the lane shim's loop form (``ed::LoopLanes``: one
+thread runs the 32 lanes of each of the warp's cooperative steps, the
+candidate scan's ballots, the bounding-box reductions, the raster and the
+ball cells, in lane order), so the code K3's warps run is what is held. It is held to `mapgen.generate_map_plain` plus the plain
 prelude (`engine.reset_map_prelude` on CPU tensors) on a mixed batch
 (`mapgen.mixed_batch`: 1-4 players, 1-16 pieces, difficulties 0-2; lanes
 that abort after five failed retries, and lanes whose retries stack 52

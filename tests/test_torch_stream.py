@@ -1,7 +1,8 @@
 """The port's learner-feed pieces that need no rollout, against the JAX
 package at tolerance zero: record packing and unpacking, the compressed
-chunk, the native ring and its loader, the numpy map expansion, and the
-refusals (a failing compiler, compression with on-device delivery).
+chunk, the native ring and its loader, the numpy map expansion, the
+refusals (a failing compiler, compression with on-device delivery), and
+the consumer thread's stop, which must not drop the last block.
 
 Inputs are made from a numpy seed and handed to both packages; the JAX
 functions take the blocked (nb, f, block) layout, here with nb = 1."""
@@ -227,6 +228,31 @@ def test_failing_consumer_raises(n_steps):
         S.stream_rollout(s, et.sampler_init(11, 8, device="cpu"), n_steps, 40,
                          steps_per_push=20, consume=consume)
     assert isinstance(info.value.__cause__, KeyError)
+
+
+def test_consumer_takes_the_last_block_pushed_before_the_stop():
+    """The producer pushes its last block and stops the consumer between
+    the consumer's finding the ring empty and its reading the stop flag:
+    the consumer still takes the block before it returns."""
+    block = np.arange(2 * 3 * 5, dtype=np.int32).view(np.uint8)
+
+    class Ring:   # empty at the first pop, then the last block arrives
+        def __init__(self):
+            self.pops, self.left = 0, [block]
+
+        def pop(self):
+            self.pops += 1
+            if self.pops == 1:
+                consumer._stopping.set()   # the push and the stop, here
+                return None
+            return self.left.pop() if self.left else None
+
+    got = []
+    consumer = S.RingConsumer(Ring(), 2, 3, got.append, record_words=5)
+    consumer.start()
+    consumer.finish()
+    assert len(got) == 1 and consumer.records == 2 * 3
+    assert np.array_equal(got[0].reshape(-1), block.view(np.int32))
 
 
 def test_expand_obs_np_equals_jax():
