@@ -39,10 +39,14 @@ before the final line:
    launch shape and its ms per 128-env queue and at 4096 envs in every
    launch shape (both places of the pair table);
 6. K1's cost probes on the carry phase 5 leaves: K1-null, P1 (null
-   copy), P2 (op chain, nine shapes, both ops, k=4096) and P3 (step
-   prefix, cuts 0-3 over 8 steps) against their plain versions, then the
-   probe path: the measurements of the four eldorado_tpu_torch.tools
-   modules at short step counts, printed as the tools print them;
+   copy), P2 (op chain,
+   nine shapes, both ops, k=4096) and P3 (step prefix, cuts 0-3 over 8
+   steps) against their plain versions, then the probe path: the
+   measurements of the four eldorado_tpu_torch.tools modules at short step
+   counts, printed as the tools print them; then P1 beside
+   ``dst.copy_(carry)``, each timed twice in turns, with the L2 swept by a
+   write (dirty) and by a read (clean) before each launch, and the latency of one dependent int32 op
+   (P2's time over k, one warp), which sets P2's bound;
 7. the learner feed (stream.py): (a) K1 with compact and with full
    records against the records of phase 3's and phase 5's plain runs,
    and K1's ms per step with and without records; (b) stream_rollout
@@ -52,7 +56,21 @@ before the final line:
    before it: from vec_reset(12345, 4096, 4, 3, EASY, 100000), 3 chunks
    of 1500 steps through the compact ring, device delivery, the
    compressed ring and exact mode, then one chunk of full records
-   through a small ring.
+   through a small ring;
+8. the learner's surface (vec.py): (a) K1-act (vec_step's step with the
+   learner's actions) and K1-sample (vec_sample's sampler) against their
+   plain versions at 4096 envs from the main path's reset, sampled and
+   random in-range actions, live flags or none; K1 with the trajectory
+   record against the plain record on phases 3 and 5's inputs; (b) an
+   action outside its head raises, the batch untouched; then, with the
+   counts zeroed just before: (c) VecEnv's sample / step loop at 512 envs
+   for 200 steps in 20-turn games, CUDA against CPU on every field, srng
+   and the episode count; (d) rollout in both auto-reset modes and with
+   both mask sources, and kernel_rollout, CUDA against CPU; (e) VecEnv's
+   sample-then-step rate at 4096 envs; the counts of K1-act, K1-sample,
+   K1's trajectory record, K3 and K2 read just after; then K1-act's
+   (the L2 written before each launch, as for P1; and warm),
+   K1-sample's and the trajectory record's times beside their bounds.
 
 Every kernel's record carries its bound: the least time the card could
 take for the same work, the larger of the bytes it must move over HBM's
@@ -71,7 +89,9 @@ element. P1 and K1-null are timed
 with the L2 evicted before each launch, so that their bytes come from
 HBM as their bound assumes. For P1 it also times one PyTorch call that
 computes the same function (``dst.copy_(src)``), the same way; no single
-call computes the others.
+call computes the others. P2's bound is the longer of its instructions'
+time through the schedulers and its chain of k dependent ops at the
+latency measured in phase 6.
 
 The line before last is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Nothing here imports jax.
@@ -94,6 +114,10 @@ PREFIX_STEPS = 8   # phase 6: P3 against plain over this many steps
 OP_K = 4096        # phase 6: P2's chain length
 WIDE = (8192, 16384)   # phase 5: K1's ms per step at these env counts
 Q = 128            # phases 1, 2 and 5: the reset queue's width
+ACT_STEPS = 8      # phase 8a: K1-act and K1-sample against plain
+VEC_N, VEC_STEPS, VEC_TURNS = 512, 200, 20   # phase 8c: VecEnv, CPU vs CUDA
+ROLL_N, ROLL_STEPS, ROLL_TURNS = 256, 60, 10   # phase 8d: rollouts
+RATE_STEPS = 200   # phase 8e: VecEnv's sample-then-step rate
 MIXED_N = 512      # phase 1: the mixed batch
 # phases 1 and 5: K3's launch shapes (envs per block, pair table in
 # shared memory)
@@ -220,10 +244,10 @@ def k1_bound(c, srng, static, steps: int, dead: int, record=None) -> tuple:
     """K1's bound per step for ``steps`` steps from carry ``c`` (``dead``
     of them dead steps), and its PTX instructions per env-step, in all
     and by kind."""
-    from eldorado_tpu_torch import stream as S
+    from eldorado_tpu_torch.ops import step_kernel as K
     from eldorado_tpu_torch.tools import inst_count as IC
     n = c.shape[1]
-    words = 0 if record is None else S.RECORD_WIDTH[record]
+    words = 0 if record is None else K.RECORD_WORDS[record]
     ops = IC.count_k1(c, srng, static, steps, record=record)
     ms, by = bound(k1_bytes(n, steps, n * steps - dead, words), ops)
     return (ms / steps, by, sum(ops.values()) / (n * steps),
@@ -708,6 +732,7 @@ def main():
     ]
     record["kernels"] += phase6(dev, c, srng, states)
     record["kernels"] += phase7(dev, feed_checks, args, ms_k1 / CHUNK, plain1)
+    record["kernels"] += phase8(dev, feed_checks, plain1)
     if "jax" in sys.modules:
         fail("jax was imported")
     print(json.dumps(record))
@@ -825,30 +850,60 @@ def phase6(dev, c, srng, states):
         c, srng, *static, PREFIX_STEPS, 3))
     p2_row = rows_p2[((32, 512), "add")]
     # one PyTorch call that computes P1's function, on the same carry,
-    # timed as P1 is
+    # timed as P1 is, with the L2 swept by a write (dirty lines to write
+    # back) and by a read (clean) before each launch; each twice, in the
+    # order P1, copy_, copy_, P1, so that two readings of one function
+    # show the method's spread beside the difference between the two
     dst = torch.empty_like(c)
-    p1_lib_ms = _timing.cold(lambda: dst.copy_(c), 20, 80, reps=2).per
+    p1_ms = {}
+    for dirty in (True, False):
+        l2 = "dirty" if dirty else "clean"
+        for turn, what in enumerate(("P1", "copy_", "copy_", "P1")):
+            call = (lambda: P.null_copy(c)) if what == "P1" else (
+                lambda: dst.copy_(c))
+            p1_ms[f"{what} {turn // 2 + 1}, L2 {l2}"] = _timing.cold(
+                call, 50, 250, reps=3, dirty=dirty).per
+        print(f"phase 6: ms per copy of the carry, the L2 swept by a "
+              f"{'write (dirty)' if dirty else 'read (clean)'} before each "
+              "launch, in turns: " + ", ".join(
+                  f"{k.split(',')[0]} {v:.5f}" for k, v in p1_ms.items()
+                  if k.endswith(l2)))
+
+    def p1_mean(what, l2):
+        return sum(p1_ms[f"{what} {i}, L2 {l2}"] for i in (1, 2)) / 2
+    p1_ms_dirty, p1_lib_ms = p1_mean("P1", "dirty"), p1_mean("copy_", "dirty")
+    # the latency of one dependent int32 op: P2's time per call over k,
+    # one warp
+    lat = op_cost.latency(64, OP_K, "add", 10, 40, reps=2)
+    print(f"phase 6: one dependent int32 add, one warp: {lat * 1e6:.3f} ns "
+          f"({lat * 1e-3 * CLOCK_HZ:.2f} cycles at {CLOCK_HZ / 1e9:.2f} "
+          "GHz; the slope of P2's time per call from k = 64 to 4096)")
     # the bounds: K1-null stages each env in and out; P1 copies the carry;
-    # P2 is count x k int32 ops, two loads and a store; P3's per-step work
-    # from its counted instructions at two step counts
+    # P2 is count x k int32 ops, two loads and a store, and each element's
+    # chain of k dependent ops; P3's per-step work from its counted
+    # instructions at two step counts
     carry_bytes = 2 * E.CARRY_WORDS * 4 * n
     b_null = bound(carry_bytes + n * (8 + 20),
                    IC.count_k1(c, srng, static, 1, null_body=True))
     b_p1 = bound(carry_bytes)
-    b_p2 = bound(3 * 4 * 32 * 512,
-                 {"int": 32 * 512 * OP_K, "mem": 3 * 32 * 512, "other": 0})
+    b_p2 = max(bound(3 * 4 * 32 * 512,
+                     {"int": 32 * 512 * OP_K, "mem": 3 * 32 * 512,
+                      "other": 0}), (OP_K * lat, "operations"))
     p3_200, p3_50 = (IC.count_p3(c, srng, static, s, 3) for s in (200, 50))
     b_p3 = bound(n * E.N_BALL * 4,
                  {k: (p3_200[k] - p3_50[k]) / 150 for k in IC.KINDS})
     for name, ms, (b, by) in (("K1-null", rows_k1["null"].per, b_null),
-                              ("P1", row_p1.per, b_p1),
+                              ("P1", p1_ms_dirty, b_p1),
                               ("P2", p2_row["calls"][OP_K].per, b_p2),
                               ("P3 cut 3, per step", rows_p3[3].per, b_p3)):
         print(f"phase 6: {name} bound {b:.6f} ms ({by}): takes "
               f"{ms / b:.2f}x its bound")
     print(f"phase 6: P1's library call dst.copy_(carry) {p1_lib_ms:.5f} ms, "
-          f"plain (clone) {p1_plain_ms:.5f} ms, P1 {row_p1.per:.5f} ms, "
-          "each with the L2 evicted before every launch")
+          f"plain (clone) {p1_plain_ms:.5f} ms, P1 {p1_ms_dirty:.5f} ms, "
+          "each with the L2 written before every launch (P1 and copy_: the "
+          "mean of their two turns)")
+    print(f"phase 6: P2's chain bound {OP_K} x {lat * 1e6:.3f} ns = "
+          f"{OP_K * lat:.6f} ms")
     return [
         {"name": "fused_step null_body (K1-null)", "route": "cuda",
          "source": "eldorado_tpu_torch/csrc/step_kernel.cu",
@@ -861,9 +916,12 @@ def phase6(dev, c, srng, states):
          "source": "eldorado_tpu_torch/csrc/probes.cu",
          "replaces": "tools/tpu_null_kernel.py:105",
          "launches": counts["P1"], "max_abs_err": err_p1,
-         "ms": row_p1.per, "plain_ms": p1_plain_ms,
+         "ms": p1_ms_dirty, "plain_ms": p1_plain_ms,
          "bound_ms": b_p1[0], "bound_by": b_p1[1], "library_ms": p1_lib_ms,
-         "per": f"copy of the ({c.shape[0]}, {n}) carry"},
+         "per": f"copy of the ({c.shape[0]}, {n}) carry",
+         "ms_l2_clean": p1_mean("P1", "clean"),
+         "library_ms_l2_clean": p1_mean("copy_", "clean"),
+         "turns_ms": p1_ms},
         {"name": "op_chain (P2)", "route": "cuda",
          "source": "eldorado_tpu_torch/csrc/probes.cu",
          "replaces": "tools/tpu_op_cost.py:62",
@@ -989,7 +1047,7 @@ def phase7(dev, feed_checks, args, k1_ms, plain_ms):
     steps = CHUNK * N_CHUNKS
     K.fused_step.launches = K.fused_reset.launches = 0
     MG.generate_map.launches = 0
-    K.fused_step.record_launches = {r: 0 for r in S.RECORD_WIDTH}
+    K.fused_step.record_launches = dict.fromkeys(K.RECORD_WORDS, 0)
     rows = {}
 
     def timed(name, T, **kw):
@@ -1007,7 +1065,8 @@ def phase7(dev, feed_checks, args, k1_ms, plain_ms):
     small = TrajectoryRing(100 * N_MAIN * S.RECORD_WORDS_FULL * 4, 8)
     full_out = timed("full records, small ring", CHUNK, record="full",
                      ring=small)
-    counts = dict(K.fused_step.record_launches, K2=K.fused_reset.launches,
+    counts = dict({r: K.fused_step.record_launches[r]
+                   for r in S.RECORD_WIDTH}, K2=K.fused_reset.launches,
                   K3=MG.generate_map.launches)
     if min(counts.values()) <= 0:
         fail(f"phase 7c: a kernel of the feed did not launch: {counts}")
@@ -1057,6 +1116,251 @@ def phase7(dev, feed_checks, args, k1_ms, plain_ms):
          "per": f"env-step batch of {N_MAIN} with "
                 f"{S.RECORD_WIDTH[record]}-word records"}
         for record in S.RECORD_WIDTH]
+
+
+def phase8(dev, feed_checks, plain_step_ms):
+    """The learner's surface: K1-act, K1-sample and K1's trajectory record
+    against their plain versions (a), the refusal of actions outside their
+    heads (b), then with every count zeroed just before, VecEnv (c) and
+    the rollouts (d) CUDA against CPU and VecEnv's rate at full width (e),
+    the counts read just after; then the three kernels' times and bounds.
+    Returns their kernel records."""
+    import torch
+    import eldorado_tpu_torch as et
+    from eldorado_tpu_torch import vec
+    from eldorado_tpu_torch.core import engine as E
+    from eldorado_tpu_torch.core import mapgen as MG
+    from eldorado_tpu_torch.ops import step_kernel as K
+    from eldorado_tpu_torch.tools import _timing, inst_count as IC
+    cpu = torch.device("cpu")
+    done_row = [o for f, _, _, o, _ in E.DYN_LAYOUT if f == "done"][0]
+
+    # ---- a: the kernels against their plain versions ----------------
+    states = et.vec_reset(12345, N_MAIN, 4, 3, 0, 100000, device=dev)
+    st = (states.map_ids, states.min_xy, states.n_players, states.max_steps)
+    c = E.pack_dyn(E.split_state(states)[1])
+    srng = et.sampler_init(42, N_MAIN, device=dev)
+    gen = np.random.default_rng(8)
+    widths = np.asarray(K.HEAD_WIDTHS)
+    err_act = err_sample = 0.0
+    for t in range(ACT_STEPS):
+        words = vec._mask_words(c, "storage")
+        live = (torch.arange(N_MAIN, device=dev) % 3 != 0) if t % 2 else None
+        got = K.sample(srng, words, live)
+        want = K.sample_plain(srng, words, live)
+        for name, a, b in zip(("actions", "srng", "tainted"), got, want):
+            err_sample = max(err_sample, max_err(a, b))
+            if not torch.equal(a, b):
+                fail(f"phase 8a: K1-sample {name} differ at step {t}")
+        acts = got[0] if t % 4 < 2 else torch.as_tensor(
+            gen.integers(0, 1 << 20, (N_MAIN, 5)) % widths,
+            dtype=torch.int32, device=dev)
+        new, n_done = K.step_actions(c, acts, *st)
+        plain, counts = K.step_actions_plain(c, acts, *st)
+        err_act = max(err_act, expect_equal(
+            f"phase 8a (K1-act, step {t})", carry_fields(new),
+            carry_fields(plain)))
+        if n_done != int(counts[1]) or int(counts[0]):
+            fail(f"phase 8a: K1-act counts {n_done} vs {counts.tolist()}")
+        c, srng = new, got[1]
+    print(f"phase 8a: K1-sample == plain and K1-act == plain at {N_MAIN} "
+          f"envs from the main path's reset, {ACT_STEPS} steps: sampled "
+          "actions and random actions inside the heads (mostly forbidden "
+          "by the masks), live flags on odd steps; every field, srng, "
+          "actions, tainted flags and the done count")
+    err_traj = 0.0
+    for what, inputs, k1_out, _ in feed_checks:
+        T, n = inputs[6], inputs[0].shape[1]
+        plain = torch.empty((T, n, K.TRAJ_WORDS), dtype=torch.int32,
+                            device=dev)
+        K.fused_step_plain(*inputs, record="traj", records=plain)
+        recs = torch.full_like(plain, -1)
+        dead = torch.zeros(1, dtype=torch.int64, device=dev)
+        out = K.fused_step(*inputs, dead, record="traj", records=recs)
+        err_traj = max(err_traj, max_err(recs, plain))
+        if not torch.equal(recs, plain):
+            bad = (recs != plain).any(-1).nonzero()[:5].tolist()
+            fail(f"phase 8a: K1 trajectory records differ from plain, "
+                 f"{what}: (step, env) {bad}")
+        expect_equal(f"phase 8a (traj, {what}): K1 with the trajectory "
+                     "record vs without", dict(carry_fields(out[0]),
+                                               srng=out[1], actions=out[2],
+                                               dead=dead), k1_out)
+        print(f"phase 8a: K1 trajectory records == plain, {what}: every "
+              f"word, {int(K.unpack_traj(plain)[1].sum())} done records")
+
+    # ---- b: actions outside their heads raise ------------------------
+    env = et.VecEnv(64, device=dev)
+    env.reset(seed=3, max_steps=VEC_TURNS)
+    before = env.states
+    for h, bad in enumerate((-1, 22, 22, 7, 19)):
+        acts = env.sample()
+        acts[5, h] = bad
+        for call in (lambda: env.step(acts),
+                     lambda: et.vec_step(before, acts)):
+            try:
+                call()
+            except ValueError:
+                continue
+            fail(f"phase 8b: action {bad} in head {h} did not raise")
+    expect_equal("phase 8b (the batch after the refusals)",
+                 {f: getattr(env.states, f) for f in E.FIELDS},
+                 {f: getattr(before, f) for f in E.FIELDS})
+    print("phase 8b: an action outside its head raises ValueError in "
+          "vec_step and VecEnv.step, each head, the batch untouched")
+
+    # ---- c-e: the learner's path, counts zeroed just before ----------
+    K.step_actions.launches = K.sample.launches = 0
+    K.fused_step.launches = K.fused_reset.launches = 0
+    K.fused_step.record_launches = dict.fromkeys(K.RECORD_WORDS, 0)
+    MG.generate_map.launches = 0
+    res = []
+    for d in (dev, cpu):
+        env = et.VecEnv(VEC_N, device=d)
+        env.reset(seed=7, max_steps=VEC_TURNS, sampler_seed=8)
+        t0 = time.perf_counter()
+        episodes = sum(int(env.step(env.sample()).sum())
+                       for _ in range(VEC_STEPS))
+        res.append((env, episodes, time.perf_counter() - t0))
+    (e_gpu, ep_gpu, wall_gpu), (e_cpu, ep_cpu, wall_cpu) = res
+    expect_equal("phase 8c", dict({f: getattr(e_gpu.states, f)
+                                   for f in E.FIELDS},
+                                  srng=e_gpu.sampler_rngs),
+                 dict({f: getattr(e_cpu.states, f) for f in E.FIELDS},
+                      srng=e_cpu.sampler_rngs))
+    if ep_gpu != ep_cpu or ep_gpu <= 0:
+        fail(f"phase 8c: episodes {ep_gpu} (cuda) vs {ep_cpu} (cpu)")
+    print(f"phase 8c: VecEnv {VEC_N} envs x {VEC_STEPS} sample / step "
+          f"rounds, {VEC_TURNS}-turn games: CUDA == CPU on every field and "
+          f"srng; episodes {ep_gpu} ({wall_gpu:.2f} s on the card, "
+          f"{wall_cpu:.2f} s on the CPU)")
+    s = et.vec_reset(5, ROLL_N, 4, 3, 0, ROLL_TURNS, device=dev)
+    r = et.sampler_init(11, ROLL_N, device=dev)
+    runs = [(f"rollout({m}, {a})", lambda s, r, m=m, a=a: et.rollout(
+        s, r, ROLL_STEPS, m, a)) for m in ("storage", "sel")
+            for a in ("none", "step")]
+    runs.append(("kernel_rollout", lambda s, r: et.kernel_rollout(
+        s, r, ROLL_STEPS)))
+    for name, run in runs:
+        got = run(s, r)
+        want = run(s.__class__(**{f: getattr(s, f).cpu()
+                                  for f in E.FIELDS}), r.cpu())
+        expect_equal(f"phase 8d ({name})",
+                     dict({f: getattr(got[0], f) for f in E.FIELDS},
+                          srng=got[1], **{f"traj{i}": x
+                                          for i, x in enumerate(got[2])}),
+                     dict({f: getattr(want[0], f) for f in E.FIELDS},
+                          srng=want[1], **{f"traj{i}": x
+                                           for i, x in enumerate(want[2])}))
+        print(f"phase 8d: {name}, {ROLL_N} envs x {ROLL_STEPS} steps: CUDA "
+              f"== CPU on every field, srng and all {len(got[2])} per-step "
+              f"outputs; {int(got[2][1].sum())} done records")
+    env = et.VecEnv(N_MAIN, device=dev)
+    env.reset(seed=12345, max_steps=100000, sampler_seed=42)
+    for _ in range(10):   # warm-up
+        env.step(env.sample())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RATE_STEPS):
+        env.step(env.sample())
+    torch.cuda.synchronize()
+    rate = N_MAIN * RATE_STEPS / (time.perf_counter() - t0)
+    counts = {"K1-act": K.step_actions.launches,
+              "K1-sample": K.sample.launches,
+              "K1 traj": K.fused_step.record_launches["traj"],
+              "K3": MG.generate_map.launches, "K2": K.fused_reset.launches}
+    if min(counts.values()) <= 0:
+        fail(f"phase 8: a kernel of the learner's path did not launch: "
+             f"{counts}")
+    print(f"phase 8e: VecEnv {N_MAIN} envs, sample then step: {rate:.0f} "
+          f"env-steps/s over {RATE_STEPS} rounds")
+    print(f"phase 8: learner path launches {counts}")
+
+    # ---- the kernels' times and bounds -------------------------------
+    c = env._carry
+    st = tuple(env._static[f] for f in ("map_ids", "min_xy", "n_players",
+                                        "max_steps"))
+    words = vec._mask_words(c, "storage")
+    acts = K.sample(env.sampler_rngs, words)[0]
+    out = torch.empty_like(c)
+    cnt = torch.zeros(2, dtype=torch.int32, device=dev)
+
+    def act_run(n):
+        for _ in range(n):
+            K.launch_step_actions(c, acts, *st, out, cnt)
+
+    def sample_run(n):
+        for _ in range(n):
+            K.sample(env.sampler_rngs, words)
+    # K1-act's 19 MB would stay in the 50 MB L2 from one launch to the
+    # next: it is timed with the L2 written before each launch, as P1 and
+    # K1-null are, so that its time and its HBM bound count the same bytes;
+    # the warm time (launches in a row) is printed beside it
+    ms_act = _timing.cold(lambda: K.launch_step_actions(c, acts, *st, out,
+                                                        cnt),
+                          50, 250, reps=3).per
+    ms_act_warm = _timing.differenced(act_run, 20, 80, reps=2,
+                                      graph=True).per
+    ms_smp = _timing.differenced(sample_run, 20, 80, reps=2, graph=True).per
+    ms_act_plain, _ = cuda_ms(lambda: K.step_actions_plain(c, acts, *st))
+    ms_smp_plain, _ = cuda_ms(lambda: K.sample_plain(env.sampler_rngs, words))
+    live = int((c[done_row] == 0).sum())
+    ops_act = IC.count_k1_act(c, acts, st)
+    b_act = bound(N_MAIN * (2 * E.CARRY_WORDS * 4 + 20 + 16)
+                  + live * E.N_BALL * 4 + 8, ops_act)
+    ops_smp = IC.count_k1_sample(env.sampler_rngs, words)
+    b_smp = bound(N_MAIN * (4 + 4 + 12 + 20 + 1), ops_smp)
+    for name, ms, how, plain_ms, (b, by), ops in (
+            ("K1-act", ms_act, "the L2 written before each launch",
+             ms_act_plain, b_act, ops_act),
+            ("K1-sample", ms_smp, "launches in a row, its 168 KB in L2",
+             ms_smp_plain, b_smp, ops_smp)):
+        print(f"phase 8: {name} {ms:.5f} ms per launch at {N_MAIN} envs "
+              f"({how}; CUDA graph), plain {plain_ms:.3f} ms; "
+              f"bound {b:.6f} ms ({by}; {sum(ops.values()) / N_MAIN:.0f} "
+              f"PTX instructions per env: {per_kind(ops, N_MAIN)}): takes "
+              f"{ms / b:.2f}x its bound")
+    print(f"phase 8: K1-act warm (launches in a row, its bytes in L2) "
+          f"{ms_act_warm:.5f} ms per launch")
+    args = feed_checks[-1][1][:6]   # phase 5's main-path carry
+    buf = torch.empty((CHUNK, N_MAIN, K.TRAJ_WORDS), dtype=torch.int32,
+                      device=dev)
+    dead = torch.zeros(1, dtype=torch.int64, device=dev)
+    ms_traj, _ = cuda_ms(lambda: K.fused_step(*args, CHUNK, "storage", False,
+                                              dead, record="traj",
+                                              records=buf))
+    ms_traj /= CHUNK
+    del buf
+    b_traj = k1_bound(args[0], args[1], args[2:], CHUNK, int(dead), "traj")
+    print(f"phase 8: K1 trajectory record {ms_traj:.4f} ms/step at {N_MAIN} "
+          f"envs (one {CHUNK}-step launch); bound {b_traj[0]:.6f} ms/step "
+          f"({b_traj[1]}; {b_traj[2]:.0f} PTX instructions per env-step: "
+          f"{b_traj[3]}): takes {ms_traj / b_traj[0]:.1f}x its bound")
+    return [
+        {"name": "step_actions (K1-act)", "route": "cuda",
+         "source": "eldorado_tpu_torch/csrc/step_actions.cu",
+         "replaces": "eldorado_tpu/vec.py:116",
+         "launches": counts["K1-act"], "max_abs_err": err_act,
+         "ms": ms_act, "plain_ms": ms_act_plain, "bound_ms": b_act[0],
+         "bound_by": b_act[1], "library_ms": None,
+         "per": f"step of {N_MAIN} envs with given actions, L2 written "
+                "before each launch", "ms_l2_warm": ms_act_warm},
+        {"name": "sample (K1-sample)", "route": "cuda",
+         "source": "eldorado_tpu_torch/csrc/sample.cu",
+         "replaces": "eldorado_tpu/vec.py:132",
+         "launches": counts["K1-sample"], "max_abs_err": err_sample,
+         "ms": ms_smp, "plain_ms": ms_smp_plain, "bound_ms": b_smp[0],
+         "bound_by": b_smp[1], "library_ms": None,
+         "per": f"sample of {N_MAIN} envs"},
+        {"name": "fused_step record=traj (K1 + trajectory)",
+         "route": "cuda", "source": "eldorado_tpu_torch/csrc/step_traj.cu",
+         "replaces": "eldorado_tpu/ops/step_kernel.py:556",
+         "launches": counts["K1 traj"], "max_abs_err": err_traj,
+         "ms": ms_traj, "plain_ms": plain_step_ms, "bound_ms": b_traj[0],
+         "bound_by": b_traj[1], "library_ms": None,
+         "per": f"env-step batch of {N_MAIN} with {K.TRAJ_WORDS}-word "
+                "trajectory records"},
+    ]
 
 
 if __name__ == "__main__":

@@ -3,9 +3,11 @@
 Port of ``eldorado_tpu/core/engine.py``. Every single-env function here is
 a one-to-one transliteration of its JAX counterpart (same one-hot,
 scatter-free formulation, same uint8 wrap sites) and is batched with
-``torch.func.vmap``; `vstep` and `vreset_body` are the batched entries.
-These are the plain versions of the two CUDA kernels (``csrc/engine.cuh``):
-the CPU path runs them, and chip_smoke.py holds the kernels to them.
+``torch.func.vmap``; `vstep`, `vstep_actions`, `vsample` and
+`vreset_body` are the batched entries.
+These are the plain versions of the CUDA kernels of the step, the sampler
+and the reset body (K1, K1-act, K1-sample, K2; ``csrc/engine.cuh``): the
+CPU path runs them, and chip_smoke.py holds the kernels to them.
 
 Dtypes at the public surface follow the JAX package: bool, int32 (which also
 holds the reference's u_char fields, wrapped with `_wrap8` at the same sites)
@@ -932,6 +934,21 @@ def _step_pre(s: EnvState, p) -> EnvState:
         steps_taken=_wrap8(s.steps_taken + one))
 
 
+def step_env(s: EnvState, action) -> EnvState:
+    """cog_env::step (src/environment.cpp:91-224) with the given action
+    (5,) i32 (play, play_special, remove, move, get_from_shop); a done env
+    dead-steps, unchanged (engine.step_env)."""
+    return step_core(s, action, ball_words(s))
+
+
+def step_core(s: EnvState, action, ball) -> EnvState:
+    """The map-free step body on the pregathered ``ball`` words
+    (engine.step_core)."""
+    p = s.agent
+    s1 = _step_pre(s, p)
+    return _step_from_view(s, s1, _pview(s1, p), p, action, ball)
+
+
 def fused_sample_step(s: EnvState, srng, ball, mask_src: str = "storage",
                       gate_dead: bool = False):
     """Sampler + step sharing one player projection
@@ -1179,6 +1196,13 @@ def _sample_action_w(rng, w, live=None):
     return torch.stack(outs), rng, tainted
 
 
+def sample_action(rng, mask, live=None):
+    """action_sampler::sample on the flat (92,) bool mask
+    (engine.sample_action). Returns (action (5,), rng, tainted); with
+    ``live`` False no engine draw is consumed."""
+    return _sample_action_w(rng, pack_mask(mask), live)
+
+
 # -------------------------------------------------------- batched entries
 def _unread_static(n_players, max_steps, map_ids, min_xy):
     z = torch.zeros_like(n_players)
@@ -1197,6 +1221,26 @@ def vstep(dyn, srng, map_ids, min_xy, n_players, max_steps,
         return split_state(s)[1], srng, act
     return vmap(one)(tuple(dyn), srng, map_ids, min_xy, n_players,
                      max_steps)
+
+
+def vstep_actions(dyn, actions, map_ids, min_xy, n_players, max_steps):
+    """One batched step with given actions (n, 5) i32 (`step_env` on every
+    env): ``dyn`` is the tuple of env-major DYN fields. Returns dyn'."""
+    def one(dyn, action, map_ids, min_xy, n_players, max_steps):
+        s = merge_state(_unread_static(n_players, max_steps, map_ids,
+                                       min_xy), dyn)
+        return split_state(step_env(s, action))[1]
+    return vmap(one)(tuple(dyn), actions, map_ids, min_xy, n_players,
+                     max_steps)
+
+
+def vsample(srng, mask_words, live=None):
+    """The batched sampler on packed (n, 3) i32 mask words; ``live`` an
+    optional (n,) bool (a False env draws nothing). Returns (actions
+    (n, 5), srng', tainted (n,))."""
+    if live is None:
+        return vmap(_sample_action_w)(srng, mask_words)
+    return vmap(_sample_action_w)(srng, mask_words, live)
 
 
 def vreset_body(dyn, n_players, player_xy, req, nr, end):

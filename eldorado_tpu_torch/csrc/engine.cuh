@@ -490,6 +490,16 @@ ED_HD void sample_action(uint32_t& rng, const uint32_t m[3], bool live,
   }
 }
 
+// Whether each of the five actions lies inside its head (the widths of
+// sample_action: engine._HEAD_DEFS). step_live indexes its tables with
+// them, so a step with given actions is run only where this holds.
+ED_HD bool actions_in_heads(const int act[5]) {
+  const int widths[5] = {22, 22, 22, 7, 19};
+  bool ok = true;
+  for (int h = 0; h < 5; ++h) ok = ok && act[h] >= 0 && act[h] < widths[h];
+  return ok;
+}
+
 // ---- step ----------------------------------------------------------------
 // The agent's 19-cell ball straight from the env's id plane: the
 // reference's size_t truncation of half-integer offsets
@@ -716,8 +726,30 @@ ED_HD void step_pre(Env& s, int p) {
   s.steps_taken[p] = wrap8(s.steps_taken[p] + 1);
 }
 
-// One fused sample + step (engine.fused_sample_step) on env s, reading the
-// agent's ball from the env's (2304,) id plane ``map``.
+// The step of live env s, whose agent is p, with the actions ``act``
+// (engine.step_core): the bookkeeping, then the agent's ball read from the
+// env's (2304,) id plane ``map``, then the step body. The actions must lie
+// inside their heads' widths (actions_in_heads): step_live indexes its
+// tables with them.
+ED_HD void step_agent(Env& s, int p, const int act[5], const int* map,
+                      int mx, int my, int n_players, int max_steps) {
+  step_pre(s, p);
+  int ids[kBall];
+  ball_ids(map, mx, my, s.xy[p][0], s.xy[p][1], ids);
+  step_live(s, act, ids, n_players, max_steps);
+}
+
+// One step of env s with the given actions (engine.step_env): a done env
+// dead-steps, unchanged.
+ED_HD void step_given(Env& s, const int act[5], const int* map, int mx,
+                      int my, int n_players, int max_steps) {
+  if (!s.done)
+    step_agent(s, s.agent, act, map, mx, my, n_players, max_steps);
+}
+
+// One fused sample + step (engine.fused_sample_step) on env s: sample_action
+// on the agent's mask, then the step of step_given with the agent read
+// once, before the draws.
 ED_HD void sample_step(Env& s, uint32_t& srng, const int* map, int mx,
                        int my, int n_players, int max_steps, int mask_sel,
                        int gate_dead, int act[5]) {
@@ -725,23 +757,22 @@ ED_HD void sample_step(Env& s, uint32_t& srng, const int* map, int mx,
   const uint32_t* mask = mask_sel ? s.sel : s.storage[p];
   int tainted = 0;
   sample_action(srng, mask, !(gate_dead && s.done), act, tainted);
-  if (!s.done) {
-    step_pre(s, p);
-    int ids[kBall];
-    ball_ids(map, mx, my, s.xy[p][0], s.xy[p][1], ids);
-    step_live(s, act, ids, n_players, max_steps);
-  }
+  if (!s.done) step_agent(s, p, act, map, mx, my, n_players, max_steps);
   s.tainted |= tainted;
 }
 
-// ---- learner-feed records (stream.pack_step / pack_step_full) ---------
-// kRecordCompact or kRecordFull int32 words of the post-step state of env
-// s, after a step that sampled ``act`` with p_pre the agent at its entry
-// (the actor). Layout: stream.py's module docstring. jnp.round and
-// torch.round round half to even, as rintf does in the default rounding
-// mode.
+// ---- per-step records (stream.pack_step / pack_step_full, vec.pack_traj)
+// kRecordCompact, kRecordFull or kRecordTraj int32 words of the post-step
+// state of env s, after a step that sampled ``act`` with p_pre the agent
+// at its entry (the actor). The feed's layouts: stream.py's module
+// docstring; jnp.round and torch.round round half to even, as rintf does
+// in the default rounding mode. The trajectory record holds rollout's
+// per-step fields exactly (vec.py's TRAJ_WORDS): word 0 as the compact
+// one, then the 4 rewards and the 3 resources as their f32 bits and the
+// 3 sel words.
 constexpr int kRecordCompact = 5;
 constexpr int kRecordFull = 40;
+constexpr int kRecordTraj = 11;
 
 ED_HD int round_even(float x) { return (int)rintf(x); }
 
@@ -751,10 +782,18 @@ ED_HD int clamp_int(int x, int lo, int hi) {
 
 template <int kWords>
 ED_HD void write_record(const Env& s, const int act[5], int p_pre, int* rec) {
-  static_assert(kWords == kRecordCompact || kWords == kRecordFull, "width");
+  static_assert(kWords == kRecordCompact || kWords == kRecordFull
+                || kWords == kRecordTraj, "width");
   uint32_t w0 = ((uint32_t)s.done << 25) | ((uint32_t)s.agent << 26)
                 | ((uint32_t)s.phase << 28);
   for (int h = 0; h < 5; ++h) w0 |= (uint32_t)act[h] << (5 * h);
+  if constexpr (kWords == kRecordTraj) {
+    rec[0] = (int)w0;
+    memcpy(rec + 1, s.rewards, sizeof(s.rewards));
+    memcpy(rec + 5, s.res, sizeof(s.res));
+    for (int j = 0; j < 3; ++j) rec[8 + j] = (int)s.sel[j];
+    return;
+  }
   uint32_t w1 = 0;
   for (int i = 0; i < 4; ++i)  // 4-bit two's complement
     w1 |= ((uint32_t)round_even(s.rewards[i]) & 0xFu) << (4 * i);

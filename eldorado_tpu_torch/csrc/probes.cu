@@ -8,13 +8,25 @@
 //
 // P1 `ed_null_copy` replaces tools/tpu_null_kernel.py (`kernel`, the
 // pallas_call at :105): every word of K1's carry in and out, the floor of
-// moving the state. A grid-stride copy of the (570, n) int32 carry, 16 bytes
-// a thread per access where the word count and both pointers allow it,
-// neighbouring threads on neighbouring addresses. Bytes bound it: at 4096
-// envs 9.3 MB in and 9.3 MB out, which fit in the 50 MB L2, so the tools
-// evict the L2 before each timed launch. The TPU kernel
-// also read its hoisted constants; they have no counterpart here, because
-// engine.cuh keeps its tables in __constant__ memory.
+// moving the state. The TPU kernel also read its hoisted constants; they
+// have no counterpart here, because engine.cuh keeps its tables in
+// __constant__ memory. Bytes bound it: at 4096 envs 9.3 MB in and 9.3 MB
+// out, 5.6 us at HBM's 3.35 TB/s; they fit in the 50 MB L2, so the tools
+// evict the L2 before each timed launch. To come near that rate an SM
+// must keep tens of kilobytes of loads in flight (the bytes in flight over
+// a load's latency of about a microsecond). The first design, a
+// grid-stride loop with one 16-byte load in flight per thread, 1,056
+// blocks making about 2.2 ragged passes, lost to `dst.copy_` by 3-7%. The
+// register design replaces it: every thread starts all kCopyVecs of its
+// 16-byte loads, through the non-coherent path without allocating in L1,
+// before its first store, and stores with the streaming hint; the grid is
+// one pass over the carry (no grid-stride tail): 16 KB of loads in flight
+// per block, all blocks resident at once (570 blocks of 256 threads at 4096
+// envs, about 70 KB per SM). A TMA design (one persistent block per SM
+// moving the bytes through a ring of 16 KB shared-memory stages with
+// cp.async.bulk) was measured against it and was slower (PERF.md).
+// It falls back to a grid-stride word copy where the word count or a
+// pointer is not 16-byte aligned.
 //
 // P2 `ed_op_chain` replaces tools/tpu_op_cost.py::build (the pallas_call at
 // :62): k dependent int32 ops on one operand shape, one thread per element,
@@ -41,13 +53,30 @@
 namespace {
 
 // ---- P1 -------------------------------------------------------------------
-__global__ void __launch_bounds__(256)
-null_copy_vec4(const int4* __restrict__ in, int4* __restrict__ out,
+constexpr int kCopyThreads = 256;
+constexpr int kCopyVecs = 4;           // 16-byte loads per thread
+
+// one pass, all loads of a thread before its stores
+__global__ void __launch_bounds__(kCopyThreads)
+null_copy_regs(const int4* __restrict__ in, int4* __restrict__ out,
                size_t count) {
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < count;
-       i += stride)
-    out[i] = in[i];
+  const size_t base =
+      (size_t)blockIdx.x * kCopyThreads * kCopyVecs + threadIdx.x;
+  int4 v[kCopyVecs];
+#pragma unroll
+  for (int k = 0; k < kCopyVecs; ++k) {
+    const size_t i = base + (size_t)k * kCopyThreads;
+    if (i < count)
+      asm volatile("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, "
+                   "[%4];"
+                   : "=r"(v[k].x), "=r"(v[k].y), "=r"(v[k].z), "=r"(v[k].w)
+                   : "l"(in + i));
+  }
+#pragma unroll
+  for (int k = 0; k < kCopyVecs; ++k) {
+    const size_t i = base + (size_t)k * kCopyThreads;
+    if (i < count) __stcs(out + i, v[k]);
+  }
 }
 
 __global__ void __launch_bounds__(256)
@@ -119,18 +148,19 @@ extern "C" int ed_null_copy(const void* in, void* out, int rows, int n,
                             void* stream) {
   const size_t count = (size_t)rows * n;
   if (count == 0) return 0;
-  const int threads = 256, max_blocks = 132 * 8;  // 8 blocks on each SM
-  const bool vec4 = count % 4 == 0
-                    && ((uintptr_t)in | (uintptr_t)out) % 16 == 0;
-  const size_t items = vec4 ? count / 4 : count;
-  size_t blocks = (items + threads - 1) / threads;
-  if (blocks > (size_t)max_blocks) blocks = max_blocks;
-  if (vec4)
-    null_copy_vec4<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int4*)in, (int4*)out, items);
-  else
-    null_copy_word<<<(int)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int*)in, (int*)out, items);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (count % 4 != 0 || ((uintptr_t)in | (uintptr_t)out) % 16 != 0) {
+    const int threads = 256, max_blocks = 132 * 8;
+    size_t blocks = (count + threads - 1) / threads;
+    if (blocks > (size_t)max_blocks) blocks = max_blocks;
+    null_copy_word<<<(int)blocks, threads, 0, st>>>(
+        (const int*)in, (int*)out, count);
+    return (int)cudaGetLastError();
+  }
+  const size_t vecs = count / 4;
+  const size_t per_block = (size_t)kCopyThreads * kCopyVecs;
+  null_copy_regs<<<(int)((vecs + per_block - 1) / per_block), kCopyThreads, 0,
+                   st>>>((const int4*)in, (int4*)out, vecs);
   return (int)cudaGetLastError();
 }
 

@@ -2,9 +2,10 @@
 // an instantiation (step_kernel.cuh holds the kernel and its design notes).
 #include "step_kernel.cuh"
 
-// record_words: 0 (no records), ed::kRecordCompact or ed::kRecordFull;
-// records may be null when it is 0. Returns cudaErrorInvalidValue for any
-// other width, or for records asked of K1-null.
+// record_words: 0 (no records), ed::kRecordCompact, ed::kRecordFull or
+// ed::kRecordTraj; records may be null when it is 0. Returns
+// cudaErrorInvalidValue for any other width, or for records asked of
+// K1-null.
 extern "C" int ed_fused_step(const void* carry_in, void* carry_out,
                              const void* srng_in, void* srng_out,
                              const void* map_ids, const void* min_xy,
@@ -27,6 +28,7 @@ extern "C" int ed_fused_step(const void* carry_in, void* carry_out,
     case 0: return ed::launch_fused_step<false, 0>(a, st);
     case ed::kRecordCompact: return ed::launch_fused_step_compact(a, st);
     case ed::kRecordFull: return ed::launch_fused_step_full(a, st);
+    case ed::kRecordTraj: return ed::launch_fused_step_traj(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

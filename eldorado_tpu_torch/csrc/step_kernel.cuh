@@ -1,9 +1,9 @@
 // K1: the fused sample + step kernel, a whole rollout chunk per launch.
 //
 // The kernel template and its launcher. step_kernel.cu instantiates the
-// record-free K1 and K1-null and holds the C entry; step_compact.cu and
-// step_full.cu instantiate the two record widths, so that nvcc builds the
-// three large instantiations in parallel.
+// record-free K1 and K1-null and holds the C entry; step_compact.cu,
+// step_full.cu and step_traj.cu instantiate the three record widths, so
+// that nvcc builds the large instantiations in parallel.
 //
 // Replaces the TPU kernel eldorado_tpu/ops/step_kernel.py::make_fused_step
 // (the Pallas program `fused_blocked`, body `kernel` -> `_step_values` ->
@@ -60,8 +60,10 @@
 // records are kRecord * 4 bytes per env: at 4096 envs, 40 words are
 // 0.66 MB per step, far below HBM's rate at K1's time per step, so the
 // cost to watch is registers, not bytes. The writes are strided by kRecord
-// words across a warp; coalescing them is later work. kRecord = 0 is the
-// record-free K1.
+// words across a warp; coalescing them is later work. kRecord = 11 is the
+// trajectory record of vec.rollout (the per-step outputs of the JAX
+// package's rollout, eldorado_tpu/vec.py:169), the f32 fields whole.
+// kRecord = 0 is the record-free K1.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -154,8 +156,9 @@ int launch_fused_step(const StepArgs& a, cudaStream_t stream) {
       a.records, a.n, a.n_steps, a.mask_sel, a.gate_dead);
 }
 
-// step_compact.cu and step_full.cu
+// step_compact.cu, step_full.cu and step_traj.cu
 int launch_fused_step_compact(const StepArgs& a, cudaStream_t stream);
 int launch_fused_step_full(const StepArgs& a, cudaStream_t stream);
+int launch_fused_step_traj(const StepArgs& a, cudaStream_t stream);
 
 }  // namespace ed

@@ -27,7 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("step_kernel.cu", "step_compact.cu", "step_full.cu",
-           "reset_kernel.cu", "mapgen.cu", "probes.cu")
+           "step_traj.cu", "step_actions.cu", "sample.cu", "reset_kernel.cu",
+           "mapgen.cu", "probes.cu")
 HEADERS = ("rng.cuh", "engine.cuh", "step_kernel.cuh", "mapgen.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
@@ -43,6 +44,11 @@ _ENTRIES = {
     "ed_fused_step": [_P] * 11 + [_I] * 6 + [_P],
     # out: threads per block, shared bytes per block, blocks per SM
     "ed_fused_step_occupancy": [_P],
+    # carry_in, carry_out, actions, map_ids, min_xy, n_players, max_steps,
+    # counts, n, stream
+    "ed_step_actions": [_P] * 8 + [_I] + [_P],
+    # srng_in, srng_out, mask_words, live, actions, tainted, n, stream
+    "ed_sample": [_P] * 6 + [_I] + [_P],
     # carry_in, carry_out, idx, n_players, player_xy, req, nr, end, n, q,
     # stream
     "ed_fused_reset": [_P] * 8 + [_I] * 2 + [_P],

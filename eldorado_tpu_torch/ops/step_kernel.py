@@ -1,17 +1,21 @@
-"""The two kernels of the rollout: K1 `fused_step` and K2 `fused_reset`.
+"""The kernels of the rollout: K1 `fused_step`, K2 `fused_reset`, and the
+learner's step and sampler, K1-act `step_actions` and K1-sample `sample`.
 
 Port of ``eldorado_tpu/ops/step_kernel.py`` (``make_fused_step`` and
-``make_fused_reset``, the Pallas programs of the TPU build). Both operate on
-the field-major, env-minor carry of `engine.pack_dyn` ((W, n) int32).
+``make_fused_reset``, the Pallas programs of the TPU build) and of the
+vmapped ``step_env`` / ``sample_action`` of ``eldorado_tpu/vec.py``
+(``vec_step``, ``vec_sample``), which the TPU build left to XLA. The step
+kernels operate on the field-major, env-minor carry of `engine.pack_dyn`
+((W, n) int32).
 
 Each wrapper dispatches on the device of its tensors: CPU tensors take the
-plain torch version (`fused_step_plain`, `fused_reset_plain`, i.e. the
-vmapped single-env engine); CUDA tensors launch the hand-written kernel of
-``csrc/`` or raise. There is no fallback between the two. Each wrapper
-counts its kernel launches in a plain int attribute, ``launches`` (and
-``fused_step.null_launches`` for K1-null, K1's cost probe;
-``fused_step.record_launches[record]`` for the launches that also wrote the
-learner feed's records, which ``launches`` counts too).
+plain torch version (`fused_step_plain`, `fused_reset_plain`,
+`step_actions_plain`, `sample_plain`, i.e. the vmapped single-env engine);
+CUDA tensors launch the hand-written kernel of ``csrc/`` or raise. There is
+no fallback between the two. Each wrapper counts its kernel launches in a
+plain int attribute, ``launches`` (and ``fused_step.null_launches`` for
+K1-null, K1's cost probe; ``fused_step.record_launches[record]`` for the
+launches that also wrote per-step records, which ``launches`` counts too).
 """
 from __future__ import annotations
 
@@ -47,7 +51,39 @@ def _device_of(tensors):
 
 # ------------------------------------------------------------------- K1
 _I = {f: i for i, f in enumerate(E.DYN_FIELDS)}
-_RECORD_SEL = {None: 0, **S.RECORD_WIDTH}
+_OFF = {f: off for f, _, _, off, _ in E.DYN_LAYOUT}
+# The trajectory record (csrc/engine.cuh kRecordTraj): rollout's per-step
+# fields exactly. Word 0 as the compact record's (actions, done, agent,
+# phase), words 1-4 the rewards and 5-7 the resources as f32 bits, 8-10 the
+# sel mask words: the carry's own words at these rows.
+TRAJ_WORDS = 11
+TRAJ_ROWS = (tuple(range(_OFF["rewards"], _OFF["rewards"] + 4))
+             + tuple(range(_OFF["resources"], _OFF["resources"] + 3))
+             + tuple(range(_OFF["sel_mask"], _OFF["sel_mask"] + 3)))
+# record name -> words per env per step
+RECORD_WORDS = {**S.RECORD_WIDTH, "traj": TRAJ_WORDS}
+_RECORD_SEL = {None: 0, **RECORD_WORDS}
+
+
+def pack_traj(act, done, rewards, agent, sel, resources, phase):
+    """rollout's per-step fields, env-major -> (n, TRAJ_WORDS) int32."""
+    w0 = (done.to(_i32) << 25) | (agent << 26) | (phase << 28)
+    for i in range(5):
+        w0 = w0 | (act[:, i] << (5 * i))
+    return torch.cat([w0[:, None], rewards.contiguous().view(_i32),
+                      resources.contiguous().view(_i32), sel], 1)
+
+
+def unpack_traj(recs):
+    """(..., TRAJ_WORDS) int32 records -> (actions (..., 5) i32, done bool,
+    rewards (..., 4) f32, agent i32, sel_mask (..., 3) i32, resources
+    (..., 3) f32, phase i32): the JAX package's rollout outputs."""
+    w0 = recs[..., 0]
+    acts = torch.stack([(w0 >> (5 * h)) & 31 for h in range(5)], -1)
+    return (acts, ((w0 >> 25) & 1) != 0,
+            recs[..., 1:5].contiguous().view(torch.float32), (w0 >> 26) & 3,
+            recs[..., 8:11].contiguous(),
+            recs[..., 5:8].contiguous().view(torch.float32), (w0 >> 28) & 3)
 
 
 def _pack_records(dyn, act, p_pre, record):
@@ -55,6 +91,9 @@ def _pack_records(dyn, act, p_pre, record):
     records of ``dyn`` (env-major DYN fields), (n, W)."""
     def f(name):
         return dyn[_I[name]]
+    if record == "traj":
+        return pack_traj(act, f("done"), f("rewards"), f("agent"),
+                         f("sel_mask"), f("resources"), f("phase"))
     rec = S.pack_step(act, f("done"), f("rewards"), f("agent"),
                       f("sel_mask"), f("resources"), f("phase"))
     if record == "full":
@@ -104,8 +143,9 @@ def fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
 
     ``record`` ("compact" or "full") also writes the learner feed: step
     t's post-step record of env e into ``records[t, e]``, a caller-given
-    (n_steps, n, `stream.RECORD_WIDTH[record]`) int32 tensor (the layout
-    of stream.py's module docstring).
+    (n_steps, n, `RECORD_WORDS[record]`) int32 tensor (the layout of
+    stream.py's module docstring); ``record="traj"`` writes rollout's
+    per-step fields (`pack_traj`) the same way.
 
     ``null_body`` launches K1-null instead, the cost probe of
     make_fused_step(null_body=True): the same launch and per-env staging
@@ -124,8 +164,8 @@ def fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
         _check(dead, "dead", (1,), torch.int64)
         args.append(dead)
     if record not in _RECORD_SEL:
-        raise ValueError(f"record must be None, 'compact' or 'full', "
-                         f"not {record!r}")
+        raise ValueError(f"record must be None, 'compact', 'full' or "
+                         f"'traj', not {record!r}")
     if record is not None:
         if null_body:
             raise ValueError("K1-null writes no records")
@@ -163,7 +203,7 @@ def fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
 
 fused_step.launches = 0
 fused_step.null_launches = 0
-fused_step.record_launches = {"compact": 0, "full": 0}
+fused_step.record_launches = dict.fromkeys(RECORD_WORDS, 0)
 
 
 def fused_step_shape(n: int) -> dict:
@@ -176,6 +216,117 @@ def fused_step_shape(n: int) -> dict:
     threads, smem, per_sm = out
     return {"threads": threads, "blocks": -(-n // threads),
             "smem_bytes": smem, "blocks_per_sm": per_sm}
+
+
+# ---------------------------------------------------- K1-act, K1-sample
+# the five heads' widths (engine._HEAD_DEFS): an action lies in [0, width)
+HEAD_WIDTHS = tuple(w for _, w in E._HEAD_DEFS)
+
+
+def step_actions_plain(carry, actions, map_ids, min_xy, n_players,
+                       max_steps):
+    """Plain version of K1-act: `engine.vstep_actions` on the carry; an env
+    whose actions do not all lie in their heads is left as it was.
+    Returns (carry', counts): counts (2,) int32 holds the number of such
+    envs and the number of envs done after the step."""
+    widths = torch.tensor(HEAD_WIDTHS, dtype=_i32, device=actions.device)
+    bad = ((actions < 0) | (actions >= widths)).any(1)
+    dyn = E.unpack_dyn(carry)
+    new = E.vstep_actions(dyn, torch.where(bad[:, None], 0, actions),
+                          map_ids, min_xy, n_players, max_steps)
+    out = E.pack_dyn(new)
+    out = torch.where(bad, carry, out)
+    done = out[_OFF["done"]] != 0
+    return out, torch.stack([bad.sum(), done.sum()]).to(_i32)
+
+
+def step_actions(carry, actions, map_ids, min_xy, n_players, max_steps):
+    """K1-act: one step of every env of ``carry`` ((W, n) int32) with the
+    given ``actions`` ((n, 5) int32), done envs dead-stepping
+    (csrc/step_actions.cu); the map and parameters as for `fused_step`.
+    Returns (new carry, number of envs done after the step), read from the
+    device in one copy with the check of the actions. Raises ValueError,
+    and returns no step, when an action lies outside its head
+    (`HEAD_WIDTHS`): the JAX package steps such actions into states the
+    game cannot reach. In-range actions the mask forbids are stepped as
+    the JAX package steps them."""
+    n = carry.shape[1]
+    _check(carry, "carry", (E.CARRY_WORDS, n))
+    _check(actions, "actions", (n, 5))
+    _check(map_ids, "map_ids", (n, E.GRIDSIZE * E.GRIDSIZE))
+    _check(min_xy, "min_xy", (n, 2))
+    _check(n_players, "n_players", (n,))
+    _check(max_steps, "max_steps", (n,))
+    dev = _device_of([carry, actions, map_ids, min_xy, n_players, max_steps])
+    if dev.type == "cpu":
+        out, counts = step_actions_plain(carry, actions, map_ids, min_xy,
+                                         n_players, max_steps)
+    else:
+        out = torch.empty_like(carry)
+        counts = torch.zeros(2, dtype=_i32, device=dev)
+        launch_step_actions(carry, actions, map_ids, min_xy, n_players,
+                            max_steps, out, counts)
+    bad, n_done = counts.tolist()
+    if bad:
+        raise ValueError(f"{bad} envs have an action outside its head's "
+                         f"width {HEAD_WIDTHS} (or below 0)")
+    return out, n_done
+
+
+step_actions.launches = 0
+
+
+def launch_step_actions(carry, actions, map_ids, min_xy, n_players,
+                        max_steps, out, counts):
+    """K1-act's launch alone, on CUDA tensors that `step_actions` has
+    checked: the new carry into ``out``, the two counts added to
+    ``counts`` ((2,) int32), nothing read back (so that a CUDA graph can
+    hold it, to time it)."""
+    err = build.load().ed_step_actions(
+        carry.data_ptr(), out.data_ptr(), actions.data_ptr(),
+        map_ids.data_ptr(), min_xy.data_ptr(), n_players.data_ptr(),
+        max_steps.data_ptr(), counts.data_ptr(), carry.shape[1],
+        torch.cuda.current_stream(carry.device).cuda_stream)
+    build.check(err, "step_actions")
+    step_actions.launches += 1
+
+
+def sample_plain(srng, mask_words, live=None):
+    """Plain version of K1-sample: `engine.vsample`."""
+    return E.vsample(srng, mask_words, live)
+
+
+def sample(srng, mask_words, live=None):
+    """K1-sample: the masked-uniform sampler of every env
+    (csrc/sample.cu): ``srng`` (n,) int32 engines, ``mask_words`` (n, 3)
+    int32 packed masks (`engine.pack_mask`), ``live`` an optional (n,) bool
+    (an env with False draws nothing). Returns (actions (n, 5) int32,
+    srng', tainted (n,) bool)."""
+    n = srng.shape[0]
+    _check(srng, "srng", (n,))
+    _check(mask_words, "mask_words", (n, E.MASK_WORDS))
+    args = [srng, mask_words]
+    if live is not None:
+        _check(live, "live", (n,), torch.bool)
+        args.append(live)
+    dev = _device_of(args)
+    if dev.type == "cpu":
+        return sample_plain(srng, mask_words, live)
+    lib = build.load()
+    srng_out = torch.empty_like(srng)
+    act = torch.empty((n, 5), dtype=_i32, device=dev)
+    tainted = torch.empty(n, dtype=torch.bool, device=dev)
+    err = lib.ed_sample(srng.data_ptr(), srng_out.data_ptr(),
+                        mask_words.data_ptr(),
+                        None if live is None else live.data_ptr(),
+                        act.data_ptr(), tainted.data_ptr(), n,
+                        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "sample")
+    sample.launches += 1
+    return act, srng_out, tainted
+
+
+sample.launches = 0
 
 
 # ------------------------------------------------------------------- K2

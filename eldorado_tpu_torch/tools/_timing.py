@@ -103,26 +103,30 @@ def differenced(run: Callable[[int], object], s1: int, s2: int,
 
 
 def cold(launch: Callable[[], object], s1: int, s2: int,
-         reps: int = 3) -> Slope:
+         reps: int = 3, dirty: bool = True) -> Slope:
     """Time per launch of ``launch`` as a caller finds it whose inputs are
-    not in the L2 cache: before every launch a write of twice the L2's
+    not in the L2 cache: before every launch a sweep of twice the L2's
     bytes evicts whatever the last launch left there. Launches in a row
-    (s1 and s2 of them, each after its write, replayed from a CUDA graph)
-    are differenced as in `differenced`, less the same writes alone. The
-    write also leaves the L2 full of dirty lines, so a launch pays to
-    write back what it evicts, as the bytes a bound counts would."""
+    (s1 and s2 of them, each after its sweep, replayed from a CUDA graph)
+    are differenced as in `differenced`, less the same sweeps alone. With
+    ``dirty`` the sweep is a write, which leaves the L2 full of dirty
+    lines, so a launch also pays to write back what it evicts; otherwise
+    it is a read (a sum), which leaves the L2 clean, so a launch pays for
+    its own bytes alone."""
     dev = torch.cuda.current_device()
     l2 = torch.cuda.get_device_properties(dev).L2_cache_size
     flush = torch.empty(2 * l2 // 4, dtype=torch.int32, device=dev)
+    flush.zero_()
+    sweep = flush.zero_ if dirty else flush.sum
 
     def both(s):
         for _ in range(s):
-            flush.zero_()
+            sweep()
             launch()
 
     def alone(s):
         for _ in range(s):
-            flush.zero_()
+            sweep()
 
     a = differenced(both, s1, s2, reps, graph=True)
     b = differenced(alone, s1, s2, reps, graph=True)

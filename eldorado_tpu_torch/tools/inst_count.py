@@ -48,7 +48,8 @@ PTX_FLAGS = ("-arch=compute_90a", "-std=c++17", "-O3", "--fmad=false",
              "-ptx")
 # K1's instantiations (csrc/step_kernel.cuh) by record width: the source
 # that instantiates each, and a pattern of its mangled entry name
-K1_SOURCE = {0: "step_kernel.cu", 5: "step_compact.cu", 40: "step_full.cu"}
+K1_SOURCE = {0: "step_kernel.cu", 5: "step_compact.cu", 40: "step_full.cu",
+             11: "step_traj.cu"}
 K1_ENTRY = "fused_step_kernelILb{null}ELi{rec}E"
 # K3's work counted one thread per env (not part of the library)
 K3_WORK_SOURCE = "mapgen_work.cu"
@@ -293,10 +294,9 @@ def count_k1(carry, srng, static, n_steps: int, mask_src: str = "storage",
     srng, *static, n_steps, mask_src, gate_dead, null_body=null_body,
     record=record)``, launched as the library launches K1; the arguments
     are not changed."""
-    from .. import stream as S
     from ..ops import step_kernel as K
     n = carry.shape[1]
-    words = 0 if record is None else S.RECORD_WIDTH[record]
+    words = 0 if record is None else K.RECORD_WORDS[record]
     shape = K.fused_step_shape(n)
     out, srng_out = torch.empty_like(carry), torch.empty_like(srng)
     act = torch.zeros((n, 5), dtype=torch.int32, device=carry.device)
@@ -307,6 +307,31 @@ def count_k1(carry, srng, static, n_steps: int, mask_src: str = "storage",
     return kernel(shape["blocks"], shape["threads"], shape["smem_bytes"],
                   [carry, out, srng, srng_out, *static, act, None, recs, n,
                    int(n_steps), int(mask_src == "sel"), int(gate_dead)])
+
+
+def count_k1_act(carry, actions, static) -> dict:
+    """Instructions K1-act's threads execute, by kind, for
+    ``step_actions(carry, actions, *static)`` (csrc/step_actions.cu,
+    launched like K1); the arguments are not changed."""
+    from ..ops import step_kernel as K
+    n = carry.shape[1]
+    shape = K.fused_step_shape(n)
+    counts = torch.zeros(2, dtype=torch.int32, device=carry.device)
+    return counter("step_actions.cu", "step_actions_kernel")(
+        shape["blocks"], shape["threads"], shape["smem_bytes"],
+        [carry, torch.empty_like(carry), actions, *static, counts, n])
+
+
+def count_k1_sample(srng, mask_words, live=None) -> dict:
+    """Instructions K1-sample's threads execute, by kind, for
+    ``sample(srng, mask_words, live)`` (csrc/sample.cu: one thread per
+    env, 32 a block)."""
+    n = srng.shape[0]
+    return counter("sample.cu", "sample_kernel")(
+        -(-n // 32), 32, 0,
+        [srng, torch.empty_like(srng), mask_words, live,
+         torch.empty((n, 5), dtype=torch.int32, device=srng.device),
+         torch.empty(n, dtype=torch.bool, device=srng.device), n])
 
 
 def count_k2(carry, n_players, player_xy, req, nr, end, idx=None) -> dict:

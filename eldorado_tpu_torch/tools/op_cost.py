@@ -31,21 +31,37 @@ SHAPES = ((B,), (1, B), (8, B // 8), (3, B), (21, B), (92, B), (4096,),
           (8, 512), (32, B))
 
 
-def measure(shape, k: int, op: str, s1: int, s2: int,
-            reps: int = 3) -> dict:
-    """{"calls": {2: Slope, k: Slope} of op_chain per call, "per_op": ms
-    per op} on fresh inputs of ``shape``."""
+def _calls(shape, ks, op: str, s1: int, s2: int, reps: int) -> dict:
+    """{k: Slope of op_chain per call with k ops} on fresh inputs of
+    ``shape``."""
     rng = np.random.default_rng(0)
     x, y = (torch.as_tensor(rng.integers(1, 1000, shape), dtype=torch.int32,
                             device="cuda") for _ in range(2))
     per = {}
-    for kk in (2, k):
+    for kk in ks:
         def run(s, kk=kk):
             z = x
             for _ in range(s):
                 z = P.op_chain(z, y, kk, op)
         per[kk] = _timing.differenced(run, s1, s2, reps, graph=True)
+    return per
+
+
+def measure(shape, k: int, op: str, s1: int, s2: int,
+            reps: int = 3) -> dict:
+    """{"calls": {2: Slope, k: Slope} of op_chain per call, "per_op": ms
+    per op} on fresh inputs of ``shape``."""
+    per = _calls(shape, (2, k), op, s1, s2, reps)
     return {"calls": per, "per_op": (per[k].per - per[2].per) / (k - 2)}
+
+
+def latency(k1: int = 64, k2: int = 4096, op: str = "add", s1: int = 10,
+            s2: int = 40, reps: int = 3) -> float:
+    """ms per dependent op of a single warp's chain: the slope of
+    op_chain's time per call over k, from k1 to k2 ops, on 32 elements
+    (one warp, so nothing hides the latency of each op)."""
+    per = _calls((32,), (k1, k2), op, s1, s2, reps)
+    return (per[k2].per - per[k1].per) / (k2 - k1)
 
 
 def report(shape, k: int, row: dict) -> str:

@@ -1,9 +1,11 @@
 """The CUDA kernels against their plain versions on the card: K1 (with and
-without the learner feed's records), K2 (new columns and in place), K3
-(map generation and its prelude, in every launch shape) and K1's cost
-probes (K1-null, P1 null copy, P2 op chain, P3 step prefix); the rollout
-and the feed, CUDA against CPU; and the card path (K1, then K3 and K2 at
-every game's end) against the 11 trajectory goldens at full length.
+without the learner feed's records, and with the trajectory record), K2
+(new columns and in place), K3 (map generation and its prelude, in every
+launch shape), the learner's step and sampler (K1-act, K1-sample) and
+K1's cost probes (K1-null, P1 null copy, P2 op chain, P3
+step prefix); the rollout, the feed, VecEnv and rollout / kernel_rollout,
+CUDA against CPU; and the card path (K1, then K3 and K2 at every game's
+end) against the 11 trajectory goldens at full length.
 
 Marked ``cuda``: skipped where torch sees no GPU. On the machine with the
 card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -15,6 +17,7 @@ import torch
 import eldorado_tpu_torch as et
 import traj_replay as TR
 from eldorado_tpu_torch import stream as S
+from eldorado_tpu_torch import vec as V
 from eldorado_tpu_torch.core import engine as TE
 from eldorado_tpu_torch.core import mapgen as MG
 from eldorado_tpu_torch.ops import probes as P
@@ -340,9 +343,130 @@ def test_null_body_equals_plain(dev, probe_state):
 
 
 def test_null_copy_equals_plain(dev, probe_state):
+    """P1 on the probe carry, a ragged width (the word path), and random
+    carries of the main path's width and just past it (a partial last
+    block)."""
     carry = probe_state[0]
-    for c in (carry, carry[:, :255].contiguous()):   # 16-byte and word path
+    gen = torch.Generator(device=dev).manual_seed(0)
+    wide = [torch.randint(-2 ** 31, 2 ** 31 - 1, (570, n), generator=gen,
+                          dtype=torch.int32, device=dev) for n in (4096, 4100)]
+    for c in [carry, carry[:, :255].contiguous()] + wide:
         assert torch.equal(P.null_copy(c), P.null_copy_plain(c))
+
+
+def test_step_actions_equal_plain(dev, probe_state):
+    """K1-act against step_actions_plain over 30 steps of the probe state
+    (some envs done): sampled actions on odd steps, random actions inside
+    the heads (mostly forbidden by the masks) on even ones; the carry and
+    the done count equal, one launch a step."""
+    carry, r, static = probe_state
+    gen = np.random.default_rng(2)
+    widths = np.asarray(K.HEAD_WIDTHS)
+    launches = K.step_actions.launches
+    for t in range(30):
+        if t % 2:
+            act, r, _ = K.sample(r, V._mask_words(carry, "storage"))
+        else:
+            act = torch.as_tensor(gen.integers(0, 1 << 20, (256, 5)) % widths,
+                                  dtype=torch.int32, device=dev)
+        got, n_done = K.step_actions(carry, act, *static)
+        want, counts = K.step_actions_plain(carry, act, *static)
+        assert torch.equal(got, want), t
+        assert n_done == int(counts[1]) and int(counts[0]) == 0, t
+        carry = got
+    assert K.step_actions.launches == launches + 30
+    assert 0 < n_done < 256
+
+
+def test_step_actions_refuses_out_of_range(dev, probe_state):
+    """An action outside its head raises ValueError on the card and on the
+    CPU alike, and the carry passed in is untouched."""
+    carry, _, static = probe_state
+    for d in (dev, torch.device("cpu")):
+        c = carry.to(d)
+        before = c.clone()
+        for h, bad in enumerate((-1, 22, 22, 7, 19)):
+            act = torch.zeros((256, 5), dtype=torch.int32, device=d)
+            act[100, h] = bad
+            with pytest.raises(ValueError):
+                K.step_actions(c, act, *(t.to(d) for t in static))
+        assert torch.equal(c, before)
+
+
+@pytest.mark.parametrize("live", [False, True])
+def test_sample_equal_plain(dev, live):
+    """K1-sample against sample_plain on 4097 random masks (some heads
+    empty), with and without the live flags."""
+    n = 4097
+    rng = np.random.default_rng(3)
+    bits = rng.random((n, TE.MASK_LEN)) < rng.random((n, 1))
+    words = TE.pack_mask(torch.as_tensor(bits, device=dev))
+    srng = et.sampler_init(9, n, device=dev)
+    flags = (torch.as_tensor(rng.random(n) < 0.7, device=dev) if live
+             else None)
+    launches = K.sample.launches
+    got = K.sample(srng, words, flags)
+    want = K.sample_plain(srng, words, flags)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert K.sample.launches == launches + 1
+
+
+@pytest.mark.parametrize("mask_src", ["storage", "sel"])
+def test_fused_step_traj_records_equal_plain(dev, mask_src):
+    """K1 with the trajectory record == the plain record; carry, srng and
+    actions as without records."""
+    T, n = 100, 256
+    s = et.vec_reset(9, n, 2, 1, 0, 10, device=dev)
+    args = (TE.pack_dyn(TE.split_state(s)[1]),
+            et.sampler_init(4, n, device=dev), s.map_ids, s.min_xy,
+            s.n_players, s.max_steps, T, mask_src)
+    want = K.fused_step(*args)
+    plain = torch.zeros((T, n, K.TRAJ_WORDS), dtype=torch.int32, device=dev)
+    K.fused_step_plain(*args, record="traj", records=plain)
+    recs = torch.full_like(plain, -1)
+    got = K.fused_step(*args, record="traj", records=recs)
+    assert torch.equal(recs, plain)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(K.unpack_traj(plain)[1].any())
+
+
+def test_vec_surface_cuda_equals_cpu(dev):
+    """VecEnv's sample / step loop (64 envs, 60 steps, 5-turn games, both
+    mask sources), rollout in both modes and kernel_rollout: CUDA == CPU
+    on every field, srng and output; the card ran K1-sample, K1-act, K1
+    with the trajectory record, K3 and K2."""
+    counts = (K.sample.launches, K.step_actions.launches,
+              K.fused_step.record_launches["traj"], MG.generate_map.launches)
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        out = []
+        for mask_src in ("storage", "sel"):
+            env = et.VecEnv(64, mask_src, device=d)
+            env.reset(seed=3, n_players=3, n_pieces=2, max_steps=5,
+                      sampler_seed=8)
+            dones = [env.step(env.sample()) for _ in range(60)]
+            out.append((env.states, env.sampler_rngs, (torch.stack(dones),)))
+        s = et.vec_reset(5, 64, 4, 1, 0, 6, device=d)
+        r = et.sampler_init(11, 64, device=d)
+        out += [et.rollout(s, r, 40, m, a) for m in ("storage", "sel")
+                for a in ("none", "step")]
+        out.append(et.kernel_rollout(s, r, 40))
+        res[d.type] = out
+    for got, want in zip(res["cuda"], res["cpu"]):
+        for f in TE.FIELDS:
+            assert torch.equal(getattr(got[0], f).cpu(),
+                               getattr(want[0], f)), f
+        assert torch.equal(got[1].cpu(), want[1])
+        for a, b in zip(got[2], want[2]):
+            assert torch.equal(a.cpu(), b)
+    assert bool(res["cpu"][0][2][0].any())   # VecEnv reset envs on the way
+    after = (K.sample.launches, K.step_actions.launches,
+             K.fused_step.record_launches["traj"], MG.generate_map.launches)
+    assert after[:3] == (counts[0] + 120, counts[1] + 120,
+                         counts[2] + 2 * (1 + 40) + 1)
+    assert after[3] > counts[3]
 
 
 @pytest.mark.parametrize("op", P.OPS)

@@ -9,8 +9,13 @@ mixed players, pieces and difficulties, taken mid-game by 1500 host steps
 (so that bought cards and their specials are in play), x 200 steps in
 which half of them reach their turn limit, with the storage mask, the sel
 mask, and gate_dead (every 7th env done at entry): the carry, srng, last
-actions, dead steps and full records are equal word for word. Skips only
-where g++ is missing.
+actions, dead steps and full records are equal word for word; the same
+window with the trajectory record. K1-act's per-env work (``ed::step_given``
+behind ``ed::actions_in_heads``) steps the same envs with sampled actions,
+with random actions inside the heads that the masks forbid and with a few
+outside them, against `step_actions_plain`; K1-sample's
+(``ed::sample_action``) draws from random masks, live or not, against
+`sample_plain`. Skips only where g++ is missing.
 """
 import ctypes
 import shutil
@@ -23,6 +28,7 @@ import torch
 
 import eldorado_tpu_torch as et
 from eldorado_tpu_torch import stream as S
+from eldorado_tpu_torch import vec as V
 from eldorado_tpu_torch.core import engine as E
 from eldorado_tpu_torch.ops import build
 from eldorado_tpu_torch.ops import step_kernel as K
@@ -33,7 +39,7 @@ _OFF = {f: off for f, _, _, off, _ in E.DYN_LAYOUT}
 
 
 @pytest.fixture(scope="module")
-def host_step(tmp_path_factory):
+def host_lib(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not found: the host build of engine.cuh needs it")
@@ -43,10 +49,18 @@ def host_step(tmp_path_factory):
          f"-I{build.CSRC}", "-o", str(so), str(DRIVER)],
         capture_output=True, text=True)
     assert res.returncode == 0, res.stdout + res.stderr
-    fn = ctypes.CDLL(str(so)).ed_host_fused_step
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
-    fn.restype = ctypes.c_int
-    return fn
+    lib = ctypes.CDLL(str(so))
+    lib.ed_host_fused_step.argtypes = [ctypes.c_void_p] * 11 \
+        + [ctypes.c_int] * 5
+    lib.ed_host_fused_step.restype = ctypes.c_int
+    lib.ed_host_step_actions.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int]
+    lib.ed_host_sample.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int]
+    return lib
+
+
+@pytest.fixture(scope="module")
+def host_step(host_lib):
+    return host_lib.ed_host_fused_step
 
 
 @pytest.fixture(scope="module")
@@ -104,3 +118,89 @@ def test_engine_host_equals_plain(host_step, start, mask_src, gate_dead):
     assert bool(fields["done"][1::7].any())   # envs ended inside the run
     if gate_dead:
         assert int(dead) >= len(range(0, N, 7)) * T
+
+
+@pytest.mark.parametrize("mask_src", ["storage", "sel"])
+def test_engine_host_traj_records_equal_plain(host_step, start, mask_src):
+    """The trajectory record (vec.rollout's per-step fields) over the same
+    window, in which games end: every word, and the carry and srng as
+    without records."""
+    carry, static = start
+    srng = et.sampler_init(42, N, device="cpu")
+    got = run_host(host_step, carry, srng, static, T, mask_src, False,
+                   record_words=K.TRAJ_WORDS)
+    rec = torch.empty((T, N, K.TRAJ_WORDS), dtype=torch.int32)
+    c, r, _ = K.fused_step_plain(carry, srng, *static, T, mask_src,
+                                 record="traj", records=rec)
+    assert torch.equal(got[4], rec)
+    assert torch.equal(got[0], c) and torch.equal(got[1], r)
+    assert bool(K.unpack_traj(rec)[1].any())   # done records in the window
+
+
+def host_step_actions(lib, carry, actions, static):
+    out = torch.empty_like(carry)
+    counts = torch.zeros(2, dtype=torch.int32)
+    lib.ed_host_step_actions(carry.data_ptr(), out.data_ptr(),
+                             actions.data_ptr(),
+                             *(t.data_ptr() for t in static),
+                             counts.data_ptr(), carry.shape[1])
+    return out, counts
+
+
+def test_engine_host_step_actions_equal_plain(host_lib, start):
+    """K1-act's per-env code against `step_actions_plain` over 60 steps
+    from the mid-game carry (every 5th env done at entry): odd steps take
+    sampled actions, even steps random actions inside the heads (most of
+    them forbidden by the masks: moves off the map, cards not in hand,
+    empty shop slots); every tenth step gives every 9th env an action
+    outside its head, which both leave unstepped and count."""
+    carry, static = start
+    carry = carry.clone()
+    carry[_OFF["done"], ::5] = 1
+    gen = np.random.default_rng(3)
+    widths = np.asarray(K.HEAD_WIDTHS)
+    srng = et.sampler_init(5, N, device="cpu")
+    refused = 0
+    for t in range(60):
+        if t % 2:
+            act, srng, _ = K.sample_plain(srng,
+                                          V._mask_words(carry, "storage"))
+        else:
+            act = torch.as_tensor(gen.integers(0, 1 << 20, (N, 5)) % widths,
+                                  dtype=torch.int32)
+        if t % 10 == 0:
+            act[::9, t // 10 % 5] = (-1, 22, 22, 7, 19)[t // 10 % 5]
+        got = host_step_actions(host_lib, carry, act, static)
+        want = K.step_actions_plain(carry, act, *static)
+        assert torch.equal(got[0], want[0]), f"carry, step {t}"
+        assert torch.equal(got[1], want[1]), f"counts, step {t}"
+        refused += int(got[1][0])
+        carry = got[0]
+    assert refused == 6 * len(range(0, N, 9))
+    assert int(got[1][1]) > len(range(0, N, 5))   # envs ended in the run
+
+
+@pytest.mark.parametrize("live", [False, True])
+def test_engine_host_sample_equal_plain(host_lib, live):
+    """K1-sample's per-env code against `sample_plain` on 256 random
+    packed masks (bits 92-95 clear; some heads empty) with and without
+    the live flags (a third of the envs draw nothing)."""
+    n = 256
+    gen = np.random.default_rng(4)
+    bits = gen.random((n, E.MASK_LEN)) < gen.random((n, 1))
+    words = E.pack_mask(torch.as_tensor(bits))
+    srng = et.sampler_init(9, n, device="cpu")
+    flags = torch.as_tensor(gen.random(n) < 0.67) if live else None
+    act = torch.empty((n, 5), dtype=torch.int32)
+    srng_out = torch.empty_like(srng)
+    tainted = torch.empty(n, dtype=torch.bool)
+    host_lib.ed_host_sample(srng.data_ptr(), srng_out.data_ptr(),
+                            words.data_ptr(),
+                            None if flags is None else flags.data_ptr(),
+                            act.data_ptr(), tainted.data_ptr(), n)
+    want = K.sample_plain(srng, words, flags)
+    for name, x, y in zip(("actions", "srng", "tainted"),
+                          (act, srng_out, tainted), want):
+        assert torch.equal(x, y), name
+    if live:
+        assert torch.equal(srng_out[~flags], srng[~flags])
