@@ -70,7 +70,25 @@ before the final line:
    sample-then-step rate at 4096 envs; the counts of K1-act, K1-sample,
    K1's trajectory record, K3 and K2 read just after; then K1-act's
    (the L2 written before each launch, as for P1; and warm),
-   K1-sample's and the trajectory record's times beside their bounds.
+   K1-sample's and the trajectory record's times beside their bounds;
+9. the city_of_gold surface (compat): (a) cog_env on the card in
+   lockstep with cog_env(backend="ref") (the numpy reference engine) over
+   three parameter sets of 2000 storage-mask steps in short games, and
+   seed 21 (4 players, 1 piece, EASY) played to its win; each with a
+   full-parameter reset after a finished game; every observation, mask,
+   reward and info field after every step and reset; single-env steps/s;
+   (b) compat.vec's sample -> step loop with the observations and infos
+   read every 10 steps, CUDA against CPU at 256 envs, then its rate at
+   4096 envs with and without the reads; (c) the runner's rate. Each of
+   cog_env (a), compat.vec (b) and the runner (c) has its own counts,
+   zeroed just before it and read just after;
+10. rollout_chunked(reset_mode="async"): (a) CUDA against CPU at 512 envs
+   with exact off and on (phase 4's recipe); (b) the main path at full
+   width, sync and async in alternating turns (sync, async, async, sync)
+   from the same reset: each mode's env-steps/s, the counts zeroed just
+   before each async run and read just after it; then one run of each
+   mode under torch.profiler: its wall against the device's busy time,
+   and K3 and K2's device time per reset queue.
 
 Every kernel's record carries its bound: the least time the card could
 take for the same work, the larger of the bytes it must move over HBM's
@@ -119,6 +137,11 @@ VEC_N, VEC_STEPS, VEC_TURNS = 512, 200, 20   # phase 8c: VecEnv, CPU vs CUDA
 ROLL_N, ROLL_STEPS, ROLL_TURNS = 256, 60, 10   # phase 8d: rollouts
 RATE_STEPS = 200   # phase 8e: VecEnv's sample-then-step rate
 MIXED_N = 512      # phase 1: the mixed batch
+COMPAT_STEPS = 2000   # phase 9a: cog_env against the reference, per set
+WIN_STEPS = 4600   # phase 9a: seed 21 played to its win (4438 steps)
+CVEC_CHECK_N, CVEC_CHECK_STEPS = 256, 30   # phase 9b: CUDA against CPU
+CVEC_STEPS = 100   # phase 9b: compat.vec's and the runner's rates
+ASYNC_N, ASYNC_STEPS, ASYNC_CHUNK = 512, 400, 100   # phase 10a
 # phases 1 and 5: K3's launch shapes (envs per block, pair table in
 # shared memory)
 K3_SHAPES = tuple((e, o) for o in (False, True) for e in (1, 2, 4))
@@ -733,6 +756,13 @@ def main():
     record["kernels"] += phase6(dev, c, srng, states)
     record["kernels"] += phase7(dev, feed_checks, args, ms_k1 / CHUNK, plain1)
     record["kernels"] += phase8(dev, feed_checks, plain1)
+    rows = {r["name"].split(" (")[-1].rstrip(")"): r
+            for r in record["kernels"]}
+    for path, counts in phase9(dev).items():
+        for key, n in counts.items():
+            rows[key][f"launches_{path}"] = n
+    for key, n in phase10(dev).items():
+        rows[key]["launches_async"] = n
     if "jax" in sys.modules:
         fail("jax was imported")
     print(json.dumps(record))
@@ -1361,6 +1391,295 @@ def phase8(dev, feed_checks, plain_step_ms):
          "per": f"env-step batch of {N_MAIN} with {K.TRAJ_WORDS}-word "
                 "trajectory records"},
     ]
+
+
+def _compat_fields(env):
+    """Everything a cog_env shows: observation, infos, selected mask,
+    rewards, done and agent, as bytes."""
+    return (env.observations.tobytes(), env.infos.tobytes(),
+            env.selected_action_mask.tobytes(), env.rewards.tobytes(),
+            env.get_done(), env.agent_selection)
+
+
+def _compat_lockstep(dev, params, sampler_seed, n_steps, full_reset):
+    """cog_env on the card against cog_env(backend="ref") (the numpy
+    reference engine), storage-mask actions from RefSampler(sampler_seed),
+    every field compared after every step and reset; a finished game
+    resets with the same parameters, or the first finished game at or
+    after ``full_reset[0]`` with the full parameters ``full_reset[1]``.
+    Returns (resets, wins, seconds spent in the card env's steps)."""
+    from eldorado_tpu_torch import compat
+    from eldorado_tpu_torch.core.ref_engine import RefSampler
+    envs = [compat.cog_env(*params, backend=b, device=dev)
+            for b in ("device", "ref")]
+    for e in envs:
+        e.reset()
+    sam = RefSampler(sampler_seed)
+    resets = wins = 0
+    t_dev = 0.0
+    done_full = False
+    for t in range(n_steps):
+        ref = envs[1]._env
+        a = sam.sample(ref.storage_masks[ref.agent])
+        t0 = time.perf_counter()
+        envs[0].step(a)
+        t_dev += time.perf_counter() - t0
+        envs[1].step(a)
+        if _compat_fields(envs[0]) != _compat_fields(envs[1]):
+            fail(f"phase 9a: cog_env {params} differs from the reference "
+                 f"at step {t}")
+        if envs[1].get_done():
+            resets += 1
+            wins += bool(ref.rewards.any())
+            full = not done_full and t >= full_reset[0]
+            done_full |= full
+            for e in envs:
+                if full:
+                    e.reset(*full_reset[1])
+                else:
+                    e.reset()
+            if _compat_fields(envs[0]) != _compat_fields(envs[1]):
+                fail(f"phase 9a: cog_env {params} differs from the "
+                     f"reference after the reset at step {t}")
+    if not done_full:
+        fail(f"phase 9a: {params}: no game ended after step {full_reset[0]}")
+    return resets, wins, t_dev
+
+
+def _compat_loop(dev, n, steps, read_every, seed=12345, max_steps=100000):
+    """compat.vec's sample -> step loop (get_vec_env + get_vec_sampler),
+    the observations and infos read every ``read_every`` steps (never
+    with 0). Returns (the reads and the final getters as bytes, seconds)."""
+    import torch
+    from eldorado_tpu_torch.compat import vec as cvec
+    venv = cvec.get_vec_env(n, device=dev)
+    venv.reset(seed=seed, n_pieces=3, max_steps=max_steps)
+    sampler = cvec.get_vec_sampler(n, device=dev)
+    sampler.seed(42)
+    reads = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        a = sampler.sample(venv.get_selected_action_masks())
+        done = venv.step(a)
+        if read_every and (t + 1) % read_every == 0:
+            reads.append(a.tobytes() + done.tobytes()
+                         + venv.get_observations().tobytes()
+                         + venv.get_infos().tobytes())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reads.append(venv.get_rewards().tobytes()
+                 + venv.get_agent_selections().tobytes()
+                 + venv.get_selected_action_masks().tobytes())
+    return reads, wall
+
+
+def _launch_counts(zero=False):
+    """The launch counts of the kernels the compat and async paths run,
+    by kernel; with ``zero`` set them to 0 first."""
+    from eldorado_tpu_torch.core import mapgen as MG
+    from eldorado_tpu_torch.ops import step_kernel as K
+    counters = {"K1": K.fused_step, "K1-act": K.step_actions,
+                "K1-sample": K.sample, "K3": MG.generate_map,
+                "K2": K.fused_reset}
+    if zero:
+        for fn in counters.values():
+            fn.launches = 0
+    return {key: fn.launches for key, fn in counters.items()}
+
+
+def _check_counts(tag, counts, need):
+    """Fail unless every kernel in ``need`` launched and no other did."""
+    if any(counts[k] <= 0 for k in need) or any(
+            n for k, n in counts.items() if k not in need):
+        fail(f"{tag}: launches {counts}, expected {sorted(need)} only")
+    print(f"{tag}: launches {counts}")
+    return {k: counts[k] for k in need}
+
+
+def phase9(dev):
+    """The city_of_gold surface (eldorado_tpu_torch.compat) on the card:
+    cog_env in lockstep with the numpy reference engine, compat.vec's loop
+    CUDA against CPU and its rates at full width, and the runner's rate.
+    Each of the three has its own counts, zeroed just before it and read
+    just after. Returns {path: launches by kernel}."""
+    import torch
+    from eldorado_tpu_torch.compat import vec as cvec
+    launches = {}
+
+    # ---- a: cog_env on the card == the reference engine ---------------
+    _launch_counts(zero=True)
+    steps_dev = secs_dev = 0
+    for params, n_steps in (((77, 3, 2, 0, 6), COMPAT_STEPS),
+                            ((5, 2, 3, 2, 4), COMPAT_STEPS),
+                            ((123, 4, 2, 1, 10), COMPAT_STEPS)):
+        resets, _, secs = _compat_lockstep(
+            dev, params, params[0] + 1, n_steps,
+            (n_steps // 2, (params[0] + 9, 4, 1, 0, 5)))
+        steps_dev += n_steps
+        secs_dev += secs
+        print(f"phase 9a: cog_env{params} on the card == the reference "
+              f"engine over {n_steps} steps: every observation, mask, "
+              f"reward and info field; {resets} resets, one of them a "
+              "full-parameter reset after a finished game")
+    resets, wins, secs = _compat_lockstep(
+        dev, (21, 4, 1, 0, 100000), 6, WIN_STEPS,
+        (0, (31, 3, 2, 1, 100000)))
+    steps_dev += WIN_STEPS
+    secs_dev += secs
+    if wins < 1:
+        fail("phase 9a: the seed-21 game did not end by a win")
+    print(f"phase 9a: cog_env(21, 4, 1, EASY) == the reference engine over "
+          f"{WIN_STEPS} storage-mask steps (RefSampler(6)): {wins} won "
+          f"game(s) ({resets} resets), then a "
+          "full-parameter reset of the finished game (rewards and infos "
+          "kept) and play on")
+    print(f"phase 9a: single-env cog_env on the card: "
+          f"{steps_dev / secs_dev:.0f} steps/s ({steps_dev} steps, K1-act "
+          "and the one copy to the host each)")
+    launches["cog_env"] = _check_counts(
+        "phase 9a: cog_env", _launch_counts(), ("K1-act", "K3", "K2"))
+
+    # ---- b: compat.vec, CUDA against CPU, then its rates -------------
+    _launch_counts(zero=True)
+    got, _ = _compat_loop(dev, CVEC_CHECK_N, CVEC_CHECK_STEPS, 10,
+                          seed=21, max_steps=3)
+    want, wall_cpu = _compat_loop(torch.device("cpu"), CVEC_CHECK_N,
+                                  CVEC_CHECK_STEPS, 10, seed=21, max_steps=3)
+    if got != want:
+        fail("phase 9b: compat.vec differs between CUDA and CPU")
+    print(f"phase 9b: compat.vec {CVEC_CHECK_N} envs x {CVEC_CHECK_STEPS} "
+          f"steps of 3-turn games, observations and infos read every 10 "
+          f"steps: CUDA == CPU on every read ({wall_cpu:.1f} s on the CPU)")
+    _compat_loop(dev, N_MAIN, 10, 0)   # warm-up
+    _, wall_bare = _compat_loop(dev, N_MAIN, CVEC_STEPS, 0)
+    _, wall_read = _compat_loop(dev, N_MAIN, CVEC_STEPS, 10)
+    print(f"phase 9b: compat.vec at {N_MAIN} envs, sample -> step: "
+          f"{N_MAIN * CVEC_STEPS / wall_bare:.0f} env-steps/s without "
+          f"observation reads, {N_MAIN * CVEC_STEPS / wall_read:.0f} with "
+          f"get_observations() and get_infos() every 10 steps "
+          f"({CVEC_STEPS} steps each)")
+    launches["compat.vec"] = _check_counts(
+        "phase 9b: compat.vec", _launch_counts(),
+        ("K1-act", "K1-sample", "K3", "K2"))
+
+    # ---- c: the runner -------------------------------------------------
+    _launch_counts(zero=True)
+    runner = cvec.get_runner(N_MAIN, device=dev)
+    runner.reset(seed=12345, n_pieces=3)
+    for _ in range(10):
+        runner.sample()
+        runner.step()
+    runner.sync()
+    t0 = time.perf_counter()
+    for _ in range(CVEC_STEPS):
+        runner.sample()
+        runner.step()
+    runner.sync()
+    wall_run = time.perf_counter() - t0
+    print(f"phase 9c: RunnerCompat at {N_MAIN} envs, sample + step: "
+          f"{N_MAIN * CVEC_STEPS / wall_run:.0f} env-steps/s")
+    launches["runner"] = _check_counts(
+        "phase 9c: runner", _launch_counts(),
+        ("K1-act", "K1-sample", "K3", "K2"))
+    return launches
+
+
+def phase10(dev):
+    """rollout_chunked(reset_mode="async"): CUDA against CPU with exact off
+    and on (phase 4's recipe), then the main path at full width, sync and
+    async in alternating turns, the counts zeroed just before each async
+    run and read just after it; then one profiled run of each mode. Returns
+    the launches of one async run by kernel."""
+    import torch
+    import eldorado_tpu_torch as et
+    from eldorado_tpu_torch.core import engine as E
+    from eldorado_tpu_torch.reset_profile import _kernel_times
+    for exact in (False, True):
+        res = []
+        for d in (dev, torch.device("cpu")):
+            s = et.vec_reset(7, ASYNC_N, 4, 3, 0, 60, device=d)
+            res.append(et.rollout_chunked(
+                s, et.sampler_init(8, ASYNC_N, device=d), ASYNC_STEPS,
+                ASYNC_CHUNK, exact=exact, reset_mode="async"))
+        (a, ra, *ca), (b, rb, *cb) = res
+        expect_equal(f"phase 10a (exact={exact})",
+                     dict({f: getattr(a, f) for f in E.FIELDS}, srng=ra),
+                     dict({f: getattr(b, f) for f in E.FIELDS}, srng=rb))
+        if ca != cb or ca[0] <= 0:
+            fail(f"phase 10a: episodes / dead steps {ca} (cuda) vs {cb}")
+        print(f"phase 10a: async rollout_chunked {ASYNC_N} envs x "
+              f"{ASYNC_STEPS} steps (chunk {ASYNC_CHUNK}), "
+              f"exact={exact}: CUDA == CPU on every field and srng; "
+              f"episodes{' and dead steps' if exact else ''} {ca}")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def run(mode, profile=False):
+        """One main-path rollout from the same reset: (its output, its
+        wall in s, its launches, the profiler or None). The reset is made
+        before the counts are zeroed and the clock starts."""
+        s = et.vec_reset(12345, N_MAIN, 4, 3, 0, 100000, device=dev)
+        r = et.sampler_init(42, N_MAIN, device=dev)
+        torch.cuda.synchronize()
+        _launch_counts(zero=True)
+        prof = torch.profiler.profile(activities=acts) if profile else None
+        if prof:
+            prof.__enter__()
+        t0 = time.perf_counter()
+        out = et.rollout_chunked(s, r, CHUNK * N_CHUNKS, CHUNK,
+                                 reset_mode=mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if prof:
+            prof.__exit__(None, None, None)
+        return out, wall, _launch_counts(), prof
+
+    run("sync")
+    run("async")   # warm-up, both modes
+    walls = {"sync": [], "async": []}
+    counts = []
+    for mode in ("sync", "async", "async", "sync"):
+        (st, _, eps), wall, launches, _ = run(mode)
+        walls[mode].append(wall)
+        for f in ("rewards", "resources", "info_returns"):
+            if not bool(torch.isfinite(getattr(st, f)).all()):
+                fail(f"phase 10b: non-finite {f} ({mode})")
+        if eps <= 0:
+            fail(f"phase 10b: the {mode} main path ended no game")
+        if mode == "async":
+            counts.append(_check_counts("phase 10b: async run", launches,
+                                        ("K1", "K3", "K2")))
+        print(f"phase 10b: main path {mode}: "
+              f"{N_MAIN * CHUNK * N_CHUNKS / wall:.0f} env-steps/s "
+              f"({wall:.4f} s), episodes {eps}, launches {launches}")
+    if counts[0] != counts[1]:
+        fail(f"phase 10b: the two async runs launched {counts}")
+    rate = {m: [N_MAIN * CHUNK * N_CHUNKS / w for w in ws]
+            for m, ws in walls.items()}
+    print(f"phase 10b: sync {np.mean(rate['sync']):.0f} env-steps/s "
+          f"(turns {[round(x) for x in rate['sync']]}), async "
+          f"{np.mean(rate['async']):.0f} (turns "
+          f"{[round(x) for x in rate['async']]}): async / sync "
+          f"{np.mean(rate['async']) / np.mean(rate['sync']):.4f}")
+    # where the difference goes: one run of each mode under the profiler,
+    # its wall against the device's busy time (every kernel, summed), and
+    # K3 + K2's device time per reset (each queue and the final sweep)
+    for mode in ("sync", "async"):
+        _, wall, launches, prof = run(mode, profile=True)
+        busy, kern = _kernel_times(prof)
+        wall *= 1e3
+        print(f"phase 10b: profiled {mode} run: wall {wall:.2f} ms, device "
+              f"busy {busy:.2f} ms ({100 * busy / wall:.1f}%), idle "
+              f"{wall - busy:.2f} ms; K1 {kern['k1']:.2f} ms, K2 "
+              f"{kern['k2']:.3f} ms, K3 {kern['k3']:.3f} ms; "
+              f"{launches['K2']} resets, K3 + K2 "
+              f"{(kern['k2'] + kern['k3']) / max(1, launches['K2']):.4f} ms "
+              "per reset")
+    return counts[0]
 
 
 if __name__ == "__main__":

@@ -14,9 +14,14 @@ then sample / step in a loop, and the observation surface), `vec_reset`,
 K1-act, then the done envs' reset), `vec_sample` (K1-sample),
 `reset_done`, `reset_done_bucketed`, `rollout` and `kernel_rollout` (K1
 writing the per-step trajectory), `rollout_chunked` (self-play with queued
-auto-reset) and `check_map_generation`; the per-step learner feed
-(`stream`): `stream_rollout`, whose records K1 writes on the card and the
-native ring (`native`) hands to a consumer thread.
+auto-reset, ``reset_mode="sync"`` or ``"async"``) and
+`check_map_generation`; the per-step learner feed (`stream`):
+`stream_rollout`, whose records K1 writes on the card and the native ring
+(`native`) hands to a consumer thread. `eldorado_tpu_torch.compat`, the
+`city_of_gold`-shaped mirror (structured dtypes, `cog_env`,
+`action_sampler`, the `vec` getters), is imported on its own, as in the
+JAX package; so are the numpy reference engine (`core.ref_engine`) and
+the renderer (`render`).
 """
 from . import constants, errors
 from .constants import Difficulty

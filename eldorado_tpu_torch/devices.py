@@ -3,7 +3,9 @@
 Every entry point that makes tensors from plain values (`vec.vec_reset`,
 `vec.vec_reset_varied`, `vec.sampler_init`, `convert.state_from_numpy`,
 `convert.rngs_from_numpy`, `stream.device_stats_init`,
-`core.engine.make_state`, `ops.rng.seed`) takes ``device="cuda"``: the port
+`core.engine.make_state`, `ops.rng.seed`, `compat.cog_env` with
+``backend="device"``, `compat.vec.get_vec_env`, `get_vec_sampler` and
+`get_runner`) takes ``device="cuda"``: the port
 runs on the card unless the caller asks for the CPU with ``device="cpu"``,
 where the kernels' plain torch versions run. Functions that take tensors
 follow their inputs' device. Nothing falls back to the CPU: asking for a

@@ -307,29 +307,42 @@ def kernel_rollout(states, sampler_rngs, n_steps: int,
 
 
 def rollout_chunked(states, sampler_rngs, n_steps: int, chunk: int = 100,
-                    mask_src: str = "storage", exact: bool = False):
+                    mask_src: str = "storage", exact: bool = False,
+                    reset_mode: str = "sync"):
     """Chunked self-play with queued auto-reset (the JAX package's
-    ``rollout_chunked(backend="kernel", reset_mode="sync")``). The reset
-    queue is synchronous: each boundary's queue is regenerated before the
-    next chunk starts (the JAX package's async mode is not ported, so
-    there is no ``reset_mode``). The port has no backend, block or
-    interpret choice either, so those arguments are gone: the tensors'
-    device picks the kernels (CUDA) or their plain versions (CPU).
+    ``rollout_chunked(backend="kernel")``). The port has no backend, block
+    or interpret choice, so those arguments are gone: the tensors' device
+    picks the kernels (CUDA) or their plain versions (CPU).
 
     Per chunk: one K1 launch runs ``chunk`` steps (done envs dead-step);
-    then up to Q = min(n, 1024, max(128, n // 32)) finished envs, lowest
-    index first, are regenerated in place (K3, then K2);
-    extra finishers dead-step to the next boundary. Envs still done after
-    the last chunk are reset by a final sweep.
+    then a reset queue takes up to Q = min(n, 1024, max(128, n // 32))
+    newly finished envs, lowest index first; extra finishers dead-step to
+    a later boundary. Envs still done after the last chunk are reset by a
+    final sweep.
+
+    ``reset_mode``:
+      * "sync" (default): each boundary's queue is regenerated in place
+        before the next chunk starts (K3, then K2).
+      * "async": each boundary's queue is reset one boundary later, after
+        the next chunk's K1 launch (K3, then K2). A queued env
+        stays done and frozen meanwhile, so its reset has the values an
+        immediate one would, one chunk later; an in-flight mask keeps it
+        out of the next queue. This is the JAX package's async mode, whose
+        queue ran on the host CPU backend only to overlap the TPU's scan
+        (vec.py:758-764); on the card K3 and K2 queue behind K1 on the
+        same stream, so the delay is the mode's only effect.
 
     ``exact``: finished envs consume no sampler draws while they wait, so
     each env's steps with dead steps excluded equal the reference's
     continuous same-step auto-reset trajectory
     (include/vec_environment.h:53-61). Returns (states, srngs, episodes),
     plus dead_steps when ``exact``."""
+    if reset_mode not in ("sync", "async"):
+        raise ValueError(f"reset_mode must be 'sync' or 'async', not "
+                         f"{reset_mode!r}")
     states, srng, episodes, dead, _ = _rollout_chunks(
         states, sampler_rngs, max(1, n_steps // chunk), chunk, mask_src,
-        exact)
+        exact, deferred=reset_mode == "async")
     if exact:
         return states, srng, episodes, dead
     return states, srng, episodes
@@ -337,7 +350,7 @@ def rollout_chunked(states, sampler_rngs, n_steps: int, chunk: int = 100,
 
 def _rollout_chunks(states, sampler_rngs, n_chunks: int, chunk: int,
                     mask_src: str, exact: bool, record=None, on_chunk=None,
-                    keyframes: bool = False):
+                    keyframes: bool = False, deferred: bool = False):
     """The chunk loop of `rollout_chunked` and `stream.stream_rollout`.
 
     With ``record`` ("compact" or "full") K1 writes each chunk's records
@@ -345,7 +358,11 @@ def _rollout_chunks(states, sampler_rngs, n_chunks: int, chunk: int,
     ``on_chunk(ci, records)`` is called right after chunk ci's K1 launch,
     before that boundary's reset queue (so the caller may read chunk ci-1's
     buffer while the card runs chunk ci). With ``keyframes`` every
-    boundary that reset envs gives ``(ci, keyframe)`` (`_keyframe`).
+    boundary that reset envs gives ``(ci, keyframe)`` (`_keyframe`). With
+    ``deferred`` (the async reset mode) each boundary's queue is taken
+    from the done envs not in flight and reset at the next boundary, and
+    the last one after the last chunk (the JAX package's
+    _rollout_chunked_q with reset_mode="async", vec.py:806-852).
     Returns (states, srng, episodes, dead_steps, keyframes)."""
     dev = states.rng.device
     n = states.rng.shape[0]
@@ -360,6 +377,21 @@ def _rollout_chunks(states, sampler_rngs, n_chunks: int, chunk: int,
     bufs = ([torch.empty((chunk, n, K.RECORD_WORDS[record]), dtype=_i32,
                          device=dev) for _ in range(2)] if record else None)
     frames = []
+    # the queued envs awaiting their deferred reset (sync mode resets
+    # every queue at the boundary that took it)
+    inflight = torch.zeros(n, dtype=torch.bool, device=dev) if deferred \
+        else None
+    pending = None
+
+    def reset(ci, idx):
+        nonlocal failed, overflow
+        ok, over = _reset_columns(carry, static, idx, queue_flags=True)
+        if keyframes:
+            frames.append((ci, _keyframe(idx, ok, over, static, carry,
+                                         q_cap)))
+        failed |= ~ok
+        overflow |= over
+
     for ci in range(n_chunks):
         recs = bufs[ci % 2] if record else None
         carry, srng, _ = fused_step(
@@ -368,22 +400,26 @@ def _rollout_chunks(states, sampler_rngs, n_chunks: int, chunk: int,
             gate_dead=exact, dead=dead, record=record, records=recs)
         if on_chunk is not None:
             on_chunk(ci, recs)
-        # sync mode resets every queued env at the boundary that queued
-        # it, so the JAX path's in-flight mask is empty here: every done
-        # env is newly done
         done = carry[_OFF["done"]] != 0
+        if deferred:
+            done &= ~inflight
         key = torch.where(done, env_ids, n)
         idx = torch.sort(key).values[:q_cap].to(_i32)
         count = int((idx < n).sum())
+        queue = idx[:count] if count else None
+        if deferred:
+            if pending is not None:
+                reset(ci, pending)
+                inflight[pending.long()] = False
+            if queue is not None:
+                inflight[queue.long()] = True
+            queue, pending = None, queue
+        if queue is not None:
+            reset(ci, queue)
         if count:
-            idx = idx[:count]
-            ok, over = _reset_columns(carry, static, idx, queue_flags=True)
-            if keyframes:
-                frames.append((ci, _keyframe(idx, ok, over, static, carry,
-                                             q_cap)))
             episodes += count
-            failed |= ~ok
-            overflow |= over
+    if pending is not None:
+        reset(n_chunks, pending)
     if bool(overflow):
         raise MapCapacityError(
             "queued reset: map generation overflowed a fixed capacity")

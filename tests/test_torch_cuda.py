@@ -4,8 +4,11 @@ without the learner feed's records, and with the trajectory record), K2
 launch shape), the learner's step and sampler (K1-act, K1-sample) and
 K1's cost probes (K1-null, P1 null copy, P2 op chain, P3
 step prefix); the rollout, the feed, VecEnv and rollout / kernel_rollout,
-CUDA against CPU; and the card path (K1, then K3 and K2 at every game's
-end) against the 11 trajectory goldens at full length.
+CUDA against CPU; the card path (K1, then K3 and K2 at every game's end)
+against the 11 trajectory goldens at full length; the city_of_gold
+surface (cog_env on the card against the numpy reference engine,
+compat.vec CUDA against CPU); and rollout_chunked(reset_mode="async")
+CUDA against CPU.
 
 Marked ``cuda``: skipped where torch sees no GPU. On the machine with the
 card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -483,3 +486,89 @@ def test_step_prefix_equals_plain(dev, probe_state, cut):
     carry, r, static = probe_state
     assert torch.equal(P.step_prefix(carry, r, *static, 20, cut),
                        P.step_prefix_plain(carry, r, *static, 20, cut))
+
+
+def _compat_fields(env):
+    """Everything cog_env shows, as bytes."""
+    return (env.observations.tobytes(), env.infos.tobytes(),
+            env.selected_action_mask.tobytes(), env.rewards.tobytes(),
+            env.get_done(), env.agent_selection)
+
+
+@pytest.mark.parametrize("params", [(21, 4, 1, 0, 12), (77, 3, 2, 1, 6),
+                                    (5, 2, 3, 2, 4)])
+def test_cog_env_cuda_equals_ref(dev, params):
+    """cog_env on the card (K1-act, K3 and K2 on one env) in lockstep with
+    the numpy reference engine (backend="ref") over 400 storage-mask
+    steps; short games so resets fire; then a full-parameter reset, which
+    keeps the finished game's rewards and infos, and 100 more steps."""
+    from eldorado_tpu_torch import compat
+    from eldorado_tpu_torch.core.ref_engine import RefSampler
+    seed, n_players, n_pieces, difficulty, max_steps = params
+    envs = [compat.cog_env(seed, n_players, n_pieces, difficulty, max_steps,
+                           backend=b, device=dev) for b in ("device", "ref")]
+    launches = K.step_actions.launches
+    for e in envs:
+        e.reset()
+    sam, resets, full = RefSampler(seed + 1), 0, False
+    for t in range(500):
+        ref = envs[1]._env
+        a = sam.sample(ref.storage_masks[ref.agent])
+        for e in envs:
+            e.step(a)
+        assert _compat_fields(envs[0]) == _compat_fields(envs[1]), t
+        if envs[1].get_done():
+            resets += 1
+            once = not full and t >= 400   # after a finished game
+            full |= once
+            for e in envs:
+                if once:
+                    e.reset(seed + 7, 4, 1, 0, 3)
+                else:
+                    e.reset()
+            assert _compat_fields(envs[0]) == _compat_fields(envs[1]), t
+    assert resets > 1 and full
+    assert K.step_actions.launches == launches + 500
+
+
+def test_compat_vec_cuda_equals_cpu(dev):
+    """compat.vec's env and sampler (K1-sample, K1-act, K3 and K2) at 64
+    envs for 30 steps of 2-turn games: every getter CUDA == CPU."""
+    from eldorado_tpu_torch.compat import vec as cvec
+    res = []
+    for d in (dev, torch.device("cpu")):
+        venv = cvec.get_vec_env(64, device=d)
+        venv.reset(seed=21, n_pieces=2, max_steps=2)
+        sampler = cvec.get_vec_sampler(64, device=d)
+        sampler.seed(9)
+        rec = []
+        for _ in range(30):
+            a = sampler.sample(venv.get_selected_action_masks())
+            rec.append(venv.step(a).tobytes() + a.tobytes()
+                       + venv.get_observations().tobytes()
+                       + venv.get_infos().tobytes()
+                       + venv.get_rewards().tobytes()
+                       + venv.get_agent_selections().tobytes())
+        res.append(rec)
+    assert res[0] == res[1]
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_async_cuda_equals_cpu(dev, exact):
+    """rollout_chunked(reset_mode="async") at 256 envs, 10-turn games, 300
+    steps in chunks of 50: each queue resets through K3 and K2 on the
+    card one boundary late; every field, srng, the episodes and dead steps
+    equal the CPU run's."""
+    outs = []
+    k2, k3 = K.fused_reset.launches, MG.generate_map.launches
+    for d in (dev, torch.device("cpu")):
+        s = et.vec_reset(7, 256, 4, 3, 0, 10, device=d)
+        outs.append(et.rollout_chunked(s, et.sampler_init(8, 256, device=d),
+                                       300, 50, exact=exact,
+                                       reset_mode="async"))
+    assert K.fused_reset.launches > k2 + 1
+    assert MG.generate_map.launches > k3 + 1
+    (a, ra, *ca), (b, rb, *cb) = outs
+    for f in TE.FIELDS:
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+    assert torch.equal(ra.cpu(), rb) and ca == cb and ca[0] > 0

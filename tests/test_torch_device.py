@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from eldorado_tpu_torch import convert, stream, vec
+from eldorado_tpu_torch import compat, convert, stream, vec
+from eldorado_tpu_torch.compat import vec as cvec
 from eldorado_tpu_torch.core import engine as E
 from eldorado_tpu_torch.ops import rng as R
 
@@ -26,6 +27,10 @@ ENTRY_POINTS = {
     "device_stats_init": stream.device_stats_init,
     "make_state": E.make_state,
     "seed": R.seed,
+    "cog_env": compat.cog_env,
+    "get_vec_env": cvec.get_vec_env,
+    "get_vec_sampler": cvec.get_vec_sampler,
+    "get_runner": cvec.get_runner,
 }
 
 
@@ -48,7 +53,16 @@ def calls(fields):
         "device_stats_init": lambda **kw: stream.device_stats_init(**kw),
         "make_state": lambda **kw: E.make_state([1, 2], **kw),
         "seed": lambda **kw: R.seed([1, 2], **kw),
+        "cog_env": lambda **kw: compat.cog_env(1, 2, 1, **kw),
+        "get_vec_env": lambda **kw: reset(cvec.get_vec_env(2, **kw)),
+        "get_vec_sampler": lambda **kw: cvec.get_vec_sampler(2, **kw),
+        "get_runner": lambda **kw: reset(cvec.get_runner(2, **kw)),
     }
+
+
+def reset(compat_env):
+    compat_env.reset(seed=1, n_pieces=1)
+    return compat_env
 
 
 def tensors(out):
@@ -57,6 +71,13 @@ def tensors(out):
         return [out]
     if isinstance(out, E.EnvState):
         return [getattr(out, f) for f in E.FIELDS]
+    if isinstance(out, compat.cog_env):
+        return [out._env._carry, *out._env._static.values()]
+    if isinstance(out, (cvec.VecEnvCompat, cvec.RunnerCompat)):
+        return [out._v._carry, out._v.sampler_rngs,
+                *out._v._static.values()]
+    if isinstance(out, cvec.VecSamplerCompat):
+        return [out._rngs]
     return list(out)
 
 
