@@ -60,17 +60,27 @@ before the final line:
 8. the learner's surface (vec.py): (a) K1-act (vec_step's step with the
    learner's actions) and K1-sample (vec_sample's sampler) against their
    plain versions at 4096 envs from the main path's reset, sampled and
-   random in-range actions, live flags or none; K1 with the trajectory
-   record against the plain record on phases 3 and 5's inputs; (b) an
-   action outside its head raises, the batch untouched; then, with the
-   counts zeroed just before: (c) VecEnv's sample / step loop at 512 envs
-   for 200 steps in 20-turn games, CUDA against CPU on every field, srng
-   and the episode count; (d) rollout in both auto-reset modes and with
-   both mask sources, and kernel_rollout, CUDA against CPU; (e) VecEnv's
-   sample-then-step rate at 4096 envs; the counts of K1-act, K1-sample,
-   K1's trajectory record, K3 and K2 read just after; then K1-act's
-   (the L2 written before each launch, as for P1; and warm),
-   K1-sample's and the trajectory record's times beside their bounds;
+   random in-range actions, live flags or none; K1-act at 1, 4096, 4097
+   and 16384 envs (the word and the 16-byte staging paths, printed);
+   K1-sample reading its masks from the carry
+   (VecEnv.sample's one launch) against mask_words + the plain sampler +
+   the OR into rng_tainted, storage and sel masks, with and without live
+   flags; K1 with the trajectory record against the plain record on
+   phases 3 and 5's inputs; (b) an action outside its head raises, the
+   batch untouched; then, with the counts zeroed just before: (c)
+   VecEnv's sample / step loop at 512 envs for 200 steps in 20-turn
+   games, CUDA against CPU on every field, srng and the episode count;
+   (d) rollout in both auto-reset modes and with both mask sources, and
+   kernel_rollout, CUDA against CPU; (e) VecEnv's sample-then-step rate
+   at 4096 envs; the counts of K1-act, K1-sample (every launch from the
+   carry), K1's trajectory record, K3 and K2 read just after, and one
+   VecEnv.sample under the profiler, which must be one device operation;
+   then K1-act on the learner's carry timed cold (the L2 written before
+   each launch, as for P1), warm, and with every env done (its staging
+   floor), K1-null beside it (the first design's staging floor), K1-act
+   at one env (cog_env's width), K1-sample from the carry and from mask
+   words beside an empty kernel launched the same way (the launch
+   floor), and the trajectory record, each beside its bound;
 9. the city_of_gold surface (compat): (a) cog_env on the card in
    lockstep with cog_env(backend="ref") (the numpy reference engine) over
    three parameter sets of 2000 storage-mask steps in short games, and
@@ -133,6 +143,7 @@ OP_K = 4096        # phase 6: P2's chain length
 WIDE = (8192, 16384)   # phase 5: K1's ms per step at these env counts
 Q = 128            # phases 1, 2 and 5: the reset queue's width
 ACT_STEPS = 8      # phase 8a: K1-act and K1-sample against plain
+ACT_WIDTHS = (1, 4096, 4097, 16384)   # phase 8a: K1-act's staging paths
 VEC_N, VEC_STEPS, VEC_TURNS = 512, 200, 20   # phase 8c: VecEnv, CPU vs CUDA
 ROLL_N, ROLL_STEPS, ROLL_TURNS = 256, 60, 10   # phase 8d: rollouts
 RATE_STEPS = 200   # phase 8e: VecEnv's sample-then-step rate
@@ -619,9 +630,9 @@ def main():
         torch.cuda.synchronize()
         queue_ms.append((time.perf_counter() - tq) * 1e3)
     queue_ms = sorted(queue_ms)[len(queue_ms) // 2]
-    print(f"phase 5: K1 {ms_k1 / CHUNK:.4f} ms/step ({ms_k1:.2f} ms per "
-          f"{CHUNK}-step launch); plain step {plain1:.2f} ms/step, "
-          f"{N_MAIN} envs")
+    print(f"phase 5: K1 {ms_k1 / CHUNK:.5f} ms/step ({ms_k1:.2f} ms per "
+          f"{CHUNK}-step launch; recorded before: 0.00791); plain step "
+          f"{plain1:.2f} ms/step, {N_MAIN} envs")
     print(f"phase 5: {Q}-env reset queue: K3 {ms_k3:.4f} ms (plain "
           f"generator + prelude {ms_plain3:.2f} ms); K2 in place "
           f"{ms_k2:.4f} ms (plain {ms_plain2:.2f} ms); the whole queued "
@@ -1161,7 +1172,8 @@ def phase8(dev, feed_checks, plain_step_ms):
     from eldorado_tpu_torch.core import engine as E
     from eldorado_tpu_torch.core import mapgen as MG
     from eldorado_tpu_torch.ops import step_kernel as K
-    from eldorado_tpu_torch.tools import _timing, inst_count as IC
+    from eldorado_tpu_torch.tools import _timing, sample_cost
+    from eldorado_tpu_torch.tools import inst_count as IC
     cpu = torch.device("cpu")
     done_row = [o for f, _, _, o, _ in E.DYN_LAYOUT if f == "done"][0]
 
@@ -1174,7 +1186,7 @@ def phase8(dev, feed_checks, plain_step_ms):
     widths = np.asarray(K.HEAD_WIDTHS)
     err_act = err_sample = 0.0
     for t in range(ACT_STEPS):
-        words = vec._mask_words(c, "storage")
+        words = K.mask_words(c, "storage")
         live = (torch.arange(N_MAIN, device=dev) % 3 != 0) if t % 2 else None
         got = K.sample(srng, words, live)
         want = K.sample_plain(srng, words, live)
@@ -1219,6 +1231,61 @@ def phase8(dev, feed_checks, plain_step_ms):
         print(f"phase 8a: K1 trajectory records == plain, {what}: every "
               f"word, {int(K.unpack_traj(plain)[1].sum())} done records")
 
+    # K1-act at the widths that take each staging path: n = 1 (cog_env) and a ragged 4097 by words, 4096
+    # and 16384 by 16-byte units; from 60 K1 steps into 12-turn games, so
+    # that envs end and dead-step in the window
+    paths = {}
+    for n_act in ACT_WIDTHS:
+        s_a = et.vec_reset(123, n_act, 4, 3, 0, 12, device=dev)
+        st_a = (s_a.map_ids, s_a.min_xy, s_a.n_players, s_a.max_steps)
+        c_a, r_a, _ = K.fused_step(E.pack_dyn(E.split_state(s_a)[1]),
+                                   et.sampler_init(77, n_act, device=dev),
+                                   *st_a, 60)
+        done_seen = 0
+        for t in range(ACT_STEPS):
+            if t % 2:
+                acts, r_a, _ = K.sample(r_a, K.mask_words(c_a, "storage"))
+            else:
+                acts = torch.as_tensor(
+                    gen.integers(0, 1 << 20, (n_act, 5)) % widths,
+                    dtype=torch.int32, device=dev)
+            new, n_done = K.step_actions(c_a, acts, *st_a)
+            plain, counts = K.step_actions_plain(c_a, acts, *st_a)
+            err_act = max(err_act, expect_equal(
+                f"phase 8a (K1-act at {n_act} envs, step {t})",
+                carry_fields(new), carry_fields(plain)))
+            if n_done != int(counts[1]) or int(counts[0]):
+                fail(f"phase 8a: K1-act counts {n_done} vs "
+                     f"{counts.tolist()} at {n_act} envs")
+            done_seen = max(done_seen, n_done)
+            c_a = new
+        paths[n_act] = (K.step_actions.last_path, done_seen)
+    if [paths[n][0] for n in ACT_WIDTHS] != ["word", "16-byte", "word",
+                                             "16-byte"]:
+        fail(f"phase 8a: K1-act staged by {paths}")
+    print(f"phase 8a: K1-act ({K.ACT_ENVS} envs and {K.ACT_WARPS} warps a "
+          f"block, warp 0 stepping) == plain at {list(ACT_WIDTHS)} envs, {ACT_STEPS} steps each from "
+          "60 K1 steps into 12-turn games, sampled and random in-head "
+          "actions: every field and both counts; staging path and most "
+          f"envs done after a step, by width: {paths}")
+    # the carry-reading K1-sample: masks from the carry, the tainted
+    # flags ORed into it in place, against mask_words + sample_plain + OR
+    live_flags = torch.arange(N_MAIN, device=dev) % 3 != 0
+    for mask_src in ("storage", "sel"):
+        for live in (None, live_flags):
+            cg, cp = c.clone(), c.clone()
+            got = K.sample_carry(srng, cg, mask_src, live)
+            want = K.sample_carry_plain(srng, cp, mask_src, live)
+            for name, a, b in zip(("actions", "srng", "carry"),
+                                  got + (cg,), want + (cp,)):
+                err_sample = max(err_sample, max_err(a, b))
+                if not torch.equal(a, b):
+                    fail(f"phase 8a: K1-sample from the carry ({mask_src}, "
+                         f"live {live is not None}): {name} differ")
+    print(f"phase 8a: K1-sample from the carry == mask_words + plain + the "
+          f"OR into rng_tainted at {N_MAIN} envs, storage and sel masks, "
+          "with and without live flags: actions, srng and every carry word")
+
     # ---- b: actions outside their heads raise ------------------------
     env = et.VecEnv(64, device=dev)
     env.reset(seed=3, max_steps=VEC_TURNS)
@@ -1241,6 +1308,7 @@ def phase8(dev, feed_checks, plain_step_ms):
 
     # ---- c-e: the learner's path, counts zeroed just before ----------
     K.step_actions.launches = K.sample.launches = 0
+    K.sample.carry_launches = 0
     K.fused_step.launches = K.fused_reset.launches = 0
     K.fused_step.record_launches = dict.fromkeys(K.RECORD_WORDS, 0)
     MG.generate_map.launches = 0
@@ -1302,56 +1370,118 @@ def phase8(dev, feed_checks, plain_step_ms):
     if min(counts.values()) <= 0:
         fail(f"phase 8: a kernel of the learner's path did not launch: "
              f"{counts}")
+    if K.sample.carry_launches != counts["K1-sample"]:
+        fail(f"phase 8: VecEnv.sample launched K1-sample from mask words "
+             f"({counts['K1-sample'] - K.sample.carry_launches} times)")
     print(f"phase 8e: VecEnv {N_MAIN} envs, sample then step: {rate:.0f} "
-          f"env-steps/s over {RATE_STEPS} rounds")
+          f"env-steps/s over {RATE_STEPS} rounds (recorded before the "
+          "one-launch sampler: 14,095,175)")
     print(f"phase 8: learner path launches {counts}")
+    # VecEnv.sample is one launch on the card: the device's operations in
+    # one call, from the profiler
+    prof_acts = [torch.profiler.ProfilerActivity.CPU,
+                 torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=prof_acts) as prof:
+        env.sample()
+        torch.cuda.synchronize()
+    device_ops = {ev.key: ev.count for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA}
+    if sum(device_ops.values()) != 1 or not any(
+            "sample_kernel" in k for k in device_ops):
+        fail(f"phase 8: VecEnv.sample ran {device_ops} on the card")
+    print(f"phase 8: VecEnv.sample on the card is one operation: "
+          f"{device_ops}")
 
     # ---- the kernels' times and bounds -------------------------------
     c = env._carry
     st = tuple(env._static[f] for f in ("map_ids", "min_xy", "n_players",
                                         "max_steps"))
-    words = vec._mask_words(c, "storage")
+    words = K.mask_words(c, "storage")
     acts = K.sample(env.sampler_rngs, words)[0]
-    out = torch.empty_like(c)
-    cnt = torch.zeros(2, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(3, dtype=torch.int32, device=dev)
 
-    def act_run(n):
-        for _ in range(n):
-            K.launch_step_actions(c, acts, *st, out, cnt)
-
-    def sample_run(n):
-        for _ in range(n):
-            K.sample(env.sampler_rngs, words)
-    # K1-act's 19 MB would stay in the 50 MB L2 from one launch to the
-    # next: it is timed with the L2 written before each launch, as P1 and
-    # K1-null are, so that its time and its HBM bound count the same bytes;
-    # the warm time (launches in a row) is printed beside it
-    ms_act = _timing.cold(lambda: K.launch_step_actions(c, acts, *st, out,
-                                                        cnt),
-                          50, 250, reps=3).per
-    ms_act_warm = _timing.differenced(act_run, 20, 80, reps=2,
-                                      graph=True).per
-    ms_smp = _timing.differenced(sample_run, 20, 80, reps=2, graph=True).per
+    def in_a_row(launch):
+        def run(k):
+            for _ in range(k):
+                launch()
+        return run
+    # K1-act on the learner's 4096-env carry, timed cold (the L2 written
+    # before each launch: its 19 MB would otherwise stay in the 50 MB L2,
+    # and its bound counts HBM bytes, as for P1 and K1-null), warm (in a
+    # row) and cold with every env done (each step a dead step: the
+    # staging floor), in two turns; K1-null beside it on the same carry
+    # (the first design's staging floor), timed the same way
+    out_a = torch.empty_like(c)
+    c_done = c.clone()
+    c_done[done_row] = 1
+    turns = {"cold": [], "warm": [], "done": [], "null": []}
+    for _ in range(2):
+        turns["cold"].append(_timing.cold(lambda: K.launch_step_actions(
+            c, acts, *st, out_a, cnt), 50, 250, reps=3).per)
+        turns["warm"].append(_timing.differenced(in_a_row(
+            lambda: K.launch_step_actions(c, acts, *st, out_a, cnt)),
+            20, 80, reps=2, graph=True).per)
+        turns["done"].append(_timing.cold(lambda: K.launch_step_actions(
+            c_done, acts, *st, out_a, cnt), 50, 250, reps=3).per)
+        turns["null"].append(_timing.cold(lambda: K.fused_step(
+            c, env.sampler_rngs, *st, 1, null_body=True), 50, 250,
+            reps=3).per)
+    ms_act, ms_act_warm, ms_act_floor, ms_null = (
+        float(np.mean(turns[k])) for k in ("cold", "warm", "done", "null"))
+    print(f"phase 8: K1-act {ms_act:.5f} ms cold, {ms_act_warm:.5f} ms warm, "
+          f"{ms_act_floor:.5f} ms cold with every env done (its staging "
+          f"floor), at {N_MAIN} envs (each the mean of two turns: "
+          f"{turns}); recorded before the redesign: 0.02697 / 0.01725; "
+          f"K1-null (the first design's staging floor) {ms_null:.5f} ms "
+          f"cold on the same carry: K1-act takes {ms_act / ms_null:.2f}x it")
+    # K1-act at n = 1, cog_env's width: launches in a row
+    s1 = et.vec_reset(21, 1, 4, 1, 0, 100000, device=dev)
+    st1 = (s1.map_ids, s1.min_xy, s1.n_players, s1.max_steps)
+    c1 = E.pack_dyn(E.split_state(s1)[1])
+    a1 = K.sample(et.sampler_init(6, 1, device=dev),
+                  K.mask_words(c1, "storage"))[0]
+    o1 = torch.empty_like(c1)
+    ms_one = _timing.differenced(in_a_row(
+        lambda: K.launch_step_actions(c1, a1, *st1, o1, cnt)), 20, 80,
+        reps=2, graph=True).per
+    print(f"phase 8: K1-act at 1 env (cog_env), launches in a row: "
+          f"{ms_one:.5f} ms (recorded before the redesign: 0.01227)")
+    # K1-sample from the carry (VecEnv.sample's launch), from mask words,
+    # and an empty kernel launched the same way, in a row from a CUDA
+    # graph, in two turns
+    smp = sample_cost.measure(env.sampler_rngs, c)
+    ms_smp, ms_smp_words, ms_empty = (smp[k] for k in ("carry", "words",
+                                                       "empty"))
     ms_act_plain, _ = cuda_ms(lambda: K.step_actions_plain(c, acts, *st))
-    ms_smp_plain, _ = cuda_ms(lambda: K.sample_plain(env.sampler_rngs, words))
+    ms_smp_plain, _ = cuda_ms(lambda: K.sample_carry_plain(
+        env.sampler_rngs, c.clone()))
     live = int((c[done_row] == 0).sum())
     ops_act = IC.count_k1_act(c, acts, st)
     b_act = bound(N_MAIN * (2 * E.CARRY_WORDS * 4 + 20 + 16)
-                  + live * E.N_BALL * 4 + 8, ops_act)
-    ops_smp = IC.count_k1_sample(env.sampler_rngs, words)
-    b_smp = bound(N_MAIN * (4 + 4 + 12 + 20 + 1), ops_smp)
+                  + live * E.N_BALL * 4 + 12, ops_act)
+    # from the carry: the engine in and out, the agent and three mask
+    # words in, the actions out (the tainted row is written only for a
+    # tainted env: none here)
+    ops_smp = IC.count_k1_sample_carry(env.sampler_rngs, c)
+    b_smp = bound(N_MAIN * (4 + 4 + 4 + 12 + 20), ops_smp)
+    ops_words = IC.count_k1_sample(env.sampler_rngs, words)
+    b_words = bound(N_MAIN * (4 + 4 + 12 + 20 + 1), ops_words)
     for name, ms, how, plain_ms, (b, by), ops in (
             ("K1-act", ms_act, "the L2 written before each launch",
              ms_act_plain, b_act, ops_act),
-            ("K1-sample", ms_smp, "launches in a row, its 168 KB in L2",
-             ms_smp_plain, b_smp, ops_smp)):
+            ("K1-sample from the carry", ms_smp,
+             "launches in a row, its 0.2 MB in L2", ms_smp_plain, b_smp,
+             ops_smp),
+            ("K1-sample from mask words", ms_smp_words,
+             "launches in a row", None, b_words, ops_words)):
+        plain = "" if plain_ms is None else f", plain {plain_ms:.3f} ms"
         print(f"phase 8: {name} {ms:.5f} ms per launch at {N_MAIN} envs "
-              f"({how}; CUDA graph), plain {plain_ms:.3f} ms; "
-              f"bound {b:.6f} ms ({by}; {sum(ops.values()) / N_MAIN:.0f} "
-              f"PTX instructions per env: {per_kind(ops, N_MAIN)}): takes "
-              f"{ms / b:.2f}x its bound")
-    print(f"phase 8: K1-act warm (launches in a row, its bytes in L2) "
-          f"{ms_act_warm:.5f} ms per launch")
+              f"({how}; CUDA graph){plain}; bound {b:.6f} ms ({by}; "
+              f"{sum(ops.values()) / N_MAIN:.0f} PTX instructions per env: "
+              f"{per_kind(ops, N_MAIN)}): takes {ms / b:.2f}x its bound")
+    print(f"phase 8: {sample_cost.report(smp, N_MAIN)}; the empty kernel "
+          f"is the launch floor under K1-sample (recorded before the "
+          f"redesign: 0.00278 from mask words); turns {smp['turns']}")
     args = feed_checks[-1][1][:6]   # phase 5's main-path carry
     buf = torch.empty((CHUNK, N_MAIN, K.TRAJ_WORDS), dtype=torch.int32,
                       device=dev)
@@ -1374,14 +1504,18 @@ def phase8(dev, feed_checks, plain_step_ms):
          "ms": ms_act, "plain_ms": ms_act_plain, "bound_ms": b_act[0],
          "bound_by": b_act[1], "library_ms": None,
          "per": f"step of {N_MAIN} envs with given actions, L2 written "
-                "before each launch", "ms_l2_warm": ms_act_warm},
+                f"before each launch",
+         "ms_l2_warm": ms_act_warm, "ms_every_env_done": ms_act_floor,
+         "k1_null_ms": ms_null, "ms_one_env": ms_one},
         {"name": "sample (K1-sample)", "route": "cuda",
          "source": "eldorado_tpu_torch/csrc/sample.cu",
          "replaces": "eldorado_tpu/vec.py:132",
          "launches": counts["K1-sample"], "max_abs_err": err_sample,
          "ms": ms_smp, "plain_ms": ms_smp_plain, "bound_ms": b_smp[0],
          "bound_by": b_smp[1], "library_ms": None,
-         "per": f"sample of {N_MAIN} envs"},
+         "per": f"sample of {N_MAIN} envs from the carry (VecEnv.sample)",
+         "ms_words": ms_smp_words, "bound_ms_words": b_words[0],
+         "empty_launch_ms": ms_empty},
         {"name": "fused_step record=traj (K1 + trajectory)",
          "route": "cuda", "source": "eldorado_tpu_torch/csrc/step_traj.cu",
          "replaces": "eldorado_tpu/ops/step_kernel.py:556",

@@ -161,6 +161,52 @@ ED_HD void store_env(const Env& s, int* carry, int n, int e) {
   }
 }
 
+// ---- block staging (K1-act, csrc/step_actions.cu) -----------------------
+// K1-act's block: kActEnvs envs, kActWarps warps; warp 0 steps the envs on
+// its first kActEnvs lanes. The threads of a block stage the (570, V) tile
+// of its V envs together: the tile is cut into units, one word or one
+// 16-byte vector of four neighbouring envs, numbered field-major (the
+// units of field f, then of f + 1), so that consecutive threads load
+// consecutive addresses. Each thread takes per_pass units in a pass, all
+// loads before its shared stores; pass p's k-th unit of thread t is
+// (p * per_pass + k) * threads + t. kActUnits is one pass over a full
+// tile of 16-byte units. tests/test_torch_engine_host.py checks that the
+// units of every block cover each (field, env) exactly once.
+constexpr int kActEnvs = 16;
+constexpr int kActWarps = 8;
+constexpr int kActUnits = 9;
+
+struct TilePlan {
+  int width;      // envs per unit: 4 (16 bytes) or 1 (a word)
+  int per_field;  // units per field row
+  int units;      // units in the tile
+  int per_pass;   // units a thread loads before its shared stores
+  int passes;     // passes of the block's threads
+};
+
+// The plan of a V-env tile in units of ``width`` envs (V % width == 0)
+// for ``threads`` threads taking ``per_pass`` units a pass.
+ED_HD TilePlan tile_plan(int envs, int width, int threads, int per_pass) {
+  TilePlan p;
+  p.width = width;
+  p.per_field = envs / width;
+  p.units = kCarryWords * p.per_field;
+  p.per_pass = per_pass;
+  p.passes = (p.units + threads * per_pass - 1) / (threads * per_pass);
+  return p;
+}
+
+ED_HD int tile_unit(const TilePlan& p, int threads, int tid, int pass,
+                    int k) {
+  return (pass * p.per_pass + k) * threads + tid;
+}
+
+// Unit u's field and its first env in the tile.
+ED_HD void tile_field_env(const TilePlan& p, int u, int& f, int& e) {
+  f = u / p.per_field;
+  e = (u - f * p.per_field) * p.width;
+}
+
 ED_HD int wrap8(int x) { return x & 0xFF; }
 
 // ---- packed 92-bit masks: 3 little-endian words ----------------------
@@ -468,25 +514,43 @@ ED_HD void run_special(View& v, int special, const Ball& ball_p) {
 }
 
 // ---- sampler ---------------------------------------------------------------
+// The position of the (pos+1)-th set bit of the head field f (pos <
+// popcount(f) <= 22). On the card one __fns; on the host (the g++ tests)
+// the scan it replaces, which tests/test_torch_engine_host.py holds it to.
+ED_HD int nth_set_bit(uint32_t f, int pos) {
+#ifdef __CUDA_ARCH__
+  return (int)__fns(f, 0, pos + 1);
+#else
+  int val = 0, seen = 0;
+  for (int b = 0; b < 22; ++b) {
+    if ((f >> b) & 1u) {
+      if (seen == pos) val = b;
+      ++seen;
+    }
+  }
+  return val;
+#endif
+}
+
 // action_sampler::sample (include/sampler.h:14-79) on a packed mask: per
 // head a uniform pick over the set bits, five engine draws (none when
-// !live). engine._sample_action_w.
+// !live). engine._sample_action_w. A head's count of set bits is at most
+// its width, 22, so each draw takes its constants from SMALL_RANGE; the
+// five heads' rows are read first, together, so that their loads are in
+// flight at once and not one in each head's turn of the draw chain.
 ED_HD void sample_action(uint32_t& rng, const uint32_t m[3], bool live,
                          int act[5], int& tainted) {
   const int offs[5] = {PLAY0, SPECIAL0, REMOVE0, MOVE0, SHOP0};
   const int widths[5] = {22, 22, 22, 7, 19};
+  uint32_t f[5];
+  SmallRange row[5];
   for (int h = 0; h < 5; ++h) {
-    uint32_t f = head_field(m, offs[h], widths[h]);
-    int n = ED_POPC(f);
-    int pos = uniform_int_fast_maybe(rng, n, live, tainted);
-    int val = 0, seen = 0;
-    for (int b = 0; b < widths[h]; ++b) {
-      if ((f >> b) & 1u) {
-        if (seen == pos) val = b;
-        ++seen;
-      }
-    }
-    act[h] = n > 0 ? val : 0;
+    f[h] = head_field(m, offs[h], widths[h]);
+    row[h] = SMALL_RANGE[ED_POPC(f[h])];
+  }
+  for (int h = 0; h < 5; ++h) {
+    int pos = uniform_small_fast_maybe(rng, row[h], live, tainted);
+    act[h] = f[h] != 0 ? nth_set_bit(f[h], pos) : 0;
   }
 }
 

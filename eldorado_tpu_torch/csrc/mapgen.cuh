@@ -36,13 +36,7 @@
 // holds it to the plain version.
 #pragma once
 
-#include "engine.cuh"
-
-#ifdef __CUDACC__
-#define ED_TABLE static __device__ const
-#else
-#define ED_TABLE static const
-#endif
+#include "engine.cuh"  // and through it rng.cuh's ED_TABLE
 
 namespace ed {
 

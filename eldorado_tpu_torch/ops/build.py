@@ -49,6 +49,10 @@ _ENTRIES = {
     "ed_step_actions": [_P] * 8 + [_I] + [_P],
     # srng_in, srng_out, mask_words, live, actions, tainted, n, stream
     "ed_sample": [_P] * 6 + [_I] + [_P],
+    # srng_in, srng_out, carry, live, actions, n, mask_sel, stream
+    "ed_sample_carry": [_P] * 5 + [_I] * 2 + [_P],
+    # n, stream
+    "ed_empty": [_I, _P],
     # carry_in, carry_out, idx, n_players, player_xy, req, nr, end, n, q,
     # stream
     "ed_fused_reset": [_P] * 8 + [_I] * 2 + [_P],

@@ -6,7 +6,7 @@ Port of ``eldorado_tpu/ops/step_kernel.py`` (``make_fused_step`` and
 vmapped ``step_env`` / ``sample_action`` of ``eldorado_tpu/vec.py``
 (``vec_step``, ``vec_sample``), which the TPU build left to XLA. The step
 kernels operate on the field-major, env-minor carry of `engine.pack_dyn`
-((W, n) int32).
+((W, n) int32); `sample_carry` reads its masks from that carry too.
 
 Each wrapper dispatches on the device of its tensors: CPU tensors take the
 plain torch version (`fused_step_plain`, `fused_reset_plain`,
@@ -15,7 +15,8 @@ CUDA tensors launch the hand-written kernel of ``csrc/`` or raise. There is
 no fallback between the two. Each wrapper counts its kernel launches in a
 plain int attribute, ``launches`` (and ``fused_step.null_launches`` for
 K1-null, K1's cost probe; ``fused_step.record_launches[record]`` for the
-launches that also wrote per-step records, which ``launches`` counts too).
+launches that also wrote per-step records, which ``launches`` counts too;
+``sample.carry_launches`` for K1-sample's launches from the carry).
 """
 from __future__ import annotations
 
@@ -240,6 +241,11 @@ def step_actions_plain(carry, actions, map_ids, min_xy, n_players,
     return out, torch.stack([bad.sum(), done.sum()]).to(_i32)
 
 
+# K1-act's block (csrc/engine.cuh kActEnvs, kActWarps, kActUnits): envs
+# and warps a block, 16-byte units a staging thread loads in its pass
+ACT_ENVS, ACT_WARPS, ACT_UNITS = 16, 8, 9
+
+
 def step_actions(carry, actions, map_ids, min_xy, n_players, max_steps):
     """K1-act: one step of every env of ``carry`` ((W, n) int32) with the
     given ``actions`` ((n, 5) int32), done envs dead-stepping
@@ -249,7 +255,8 @@ def step_actions(carry, actions, map_ids, min_xy, n_players, max_steps):
     and returns no step, when an action lies outside its head
     (`HEAD_WIDTHS`): the JAX package steps such actions into states the
     game cannot reach. In-range actions the mask forbids are stepped as
-    the JAX package steps them."""
+    the JAX package steps them. On the card ``step_actions.last_path``
+    says how the last launch staged the carry: "16-byte" or "word"."""
     n = carry.shape[1]
     _check(carry, "carry", (E.CARRY_WORDS, n))
     _check(actions, "actions", (n, 5))
@@ -261,12 +268,14 @@ def step_actions(carry, actions, map_ids, min_xy, n_players, max_steps):
     if dev.type == "cpu":
         out, counts = step_actions_plain(carry, actions, map_ids, min_xy,
                                          n_players, max_steps)
+        bad, n_done = counts.tolist()
     else:
         out = torch.empty_like(carry)
-        counts = torch.zeros(2, dtype=_i32, device=dev)
+        counts = torch.zeros(3, dtype=_i32, device=dev)
         launch_step_actions(carry, actions, map_ids, min_xy, n_players,
                             max_steps, out, counts)
-    bad, n_done = counts.tolist()
+        bad, n_done, vec = counts.tolist()
+        step_actions.last_path = ("word", "16-byte")[vec]
     if bad:
         raise ValueError(f"{bad} envs have an action outside its head's "
                          f"width {HEAD_WIDTHS} (or below 0)")
@@ -274,14 +283,16 @@ def step_actions(carry, actions, map_ids, min_xy, n_players, max_steps):
 
 
 step_actions.launches = 0
+step_actions.last_path = None
 
 
 def launch_step_actions(carry, actions, map_ids, min_xy, n_players,
                         max_steps, out, counts):
     """K1-act's launch alone, on CUDA tensors that `step_actions` has
     checked: the new carry into ``out``, the two counts added to
-    ``counts`` ((2,) int32), nothing read back (so that a CUDA graph can
-    hold it, to time it)."""
+    ``counts[:2]`` and the staging path written to ``counts[2]`` ((3,)
+    int32), nothing read back (so that a CUDA graph can hold it, to time
+    it)."""
     err = build.load().ed_step_actions(
         carry.data_ptr(), out.data_ptr(), actions.data_ptr(),
         map_ids.data_ptr(), min_xy.data_ptr(), n_players.data_ptr(),
@@ -289,6 +300,19 @@ def launch_step_actions(carry, actions, map_ids, min_xy, n_players,
         torch.cuda.current_stream(carry.device).cuda_stream)
     build.check(err, "step_actions")
     step_actions.launches += 1
+
+
+def mask_words(carry, mask_src: str):
+    """Each env's active mask as (n, 3) int32 words, read from the carry:
+    its agent's storage row, or its sel mask (torch ops, on either
+    device: the plain route of `sample_carry`, and `vec_sample`'s feed)."""
+    if mask_src == "sel":
+        words = carry[_OFF["sel_mask"]:_OFF["sel_mask"] + E.MASK_WORDS]
+    else:
+        rows = (_OFF["storage_masks"] + E.MASK_WORDS * carry[_OFF["agent"]]
+                + torch.arange(E.MASK_WORDS, device=carry.device)[:, None])
+        words = torch.gather(carry, 0, rows.long())
+    return words.t().contiguous()
 
 
 def sample_plain(srng, mask_words, live=None):
@@ -327,6 +351,54 @@ def sample(srng, mask_words, live=None):
 
 
 sample.launches = 0
+sample.carry_launches = 0
+
+
+def sample_carry_plain(srng, carry, mask_src: str = "storage", live=None):
+    """Plain version of `sample_carry`: `mask_words`, `sample_plain`, then
+    the tainted flags ORed into ``carry``'s rng_tainted row in place."""
+    act, srng, tainted = sample_plain(srng, mask_words(carry, mask_src),
+                                      live)
+    carry[_OFF["rng_tainted"]] |= tainted.to(_i32)
+    return act, srng
+
+
+def sample_carry(srng, carry, mask_src: str = "storage", live=None):
+    """K1-sample on each env's active mask read from ``carry`` ((W, n)
+    int32): its agent's storage row, or (``mask_src="sel"``) its sel mask;
+    the tainted flags OR into the carry's rng_tainted row in place (the
+    JAX package's VecEnv.sample, eldorado_tpu/vec.py:877-882). One launch
+    (csrc/sample.cu, ``ed_sample_carry``), counted in ``sample.launches``
+    and ``sample.carry_launches``. Returns (actions (n, 5) int32, srng')."""
+    n = srng.shape[0]
+    _check(srng, "srng", (n,))
+    _check(carry, "carry", (E.CARRY_WORDS, n))
+    if mask_src not in _MASK_SRC:
+        raise ValueError(f"mask_src must be 'storage' or 'sel', not {mask_src}")
+    args = [srng, carry]
+    if live is not None:
+        _check(live, "live", (n,), torch.bool)
+        args.append(live)
+    dev = _device_of(args)
+    if dev.type == "cpu":
+        return sample_carry_plain(srng, carry, mask_src, live)
+    srng_out = torch.empty_like(srng)
+    act = torch.empty((n, 5), dtype=_i32, device=dev)
+    err = build.load().ed_sample_carry(
+        srng.data_ptr(), srng_out.data_ptr(), carry.data_ptr(),
+        None if live is None else live.data_ptr(), act.data_ptr(), n,
+        _MASK_SRC[mask_src], torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "sample_carry")
+    sample.launches += 1
+    sample.carry_launches += 1
+    return act, srng_out
+
+
+def launch_empty(n: int, device) -> None:
+    """An empty kernel launched as K1-sample is for ``n`` envs (csrc/
+    sample.cu ``ed_empty``): the launch floor beside K1-sample's time."""
+    build.check(build.load().ed_empty(
+        n, torch.cuda.current_stream(device).cuda_stream), "empty")
 
 
 # ------------------------------------------------------------------- K2

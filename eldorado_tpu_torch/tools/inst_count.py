@@ -312,13 +312,15 @@ def count_k1(carry, srng, static, n_steps: int, mask_src: str = "storage",
 def count_k1_act(carry, actions, static) -> dict:
     """Instructions K1-act's threads execute, by kind, for
     ``step_actions(carry, actions, *static)`` (csrc/step_actions.cu,
-    launched like K1); the arguments are not changed."""
+    `ACT_ENVS` envs and `ACT_WARPS` warps a block); the arguments are not
+    changed."""
+    from ..core import engine as E
     from ..ops import step_kernel as K
     n = carry.shape[1]
-    shape = K.fused_step_shape(n)
-    counts = torch.zeros(2, dtype=torch.int32, device=carry.device)
+    counts = torch.zeros(3, dtype=torch.int32, device=carry.device)
     return counter("step_actions.cu", "step_actions_kernel")(
-        shape["blocks"], shape["threads"], shape["smem_bytes"],
+        -(-n // K.ACT_ENVS), 32 * K.ACT_WARPS,
+        K.ACT_ENVS * 4 * (E.CARRY_WORDS + 1),
         [carry, torch.empty_like(carry), actions, *static, counts, n])
 
 
@@ -327,11 +329,23 @@ def count_k1_sample(srng, mask_words, live=None) -> dict:
     ``sample(srng, mask_words, live)`` (csrc/sample.cu: one thread per
     env, 32 a block)."""
     n = srng.shape[0]
-    return counter("sample.cu", "sample_kernel")(
+    return counter("sample.cu", "sample_kernelILb0E")(
         -(-n // 32), 32, 0,
-        [srng, torch.empty_like(srng), mask_words, live,
+        [srng, torch.empty_like(srng), mask_words, None, live,
          torch.empty((n, 5), dtype=torch.int32, device=srng.device),
-         torch.empty(n, dtype=torch.bool, device=srng.device), n])
+         torch.empty(n, dtype=torch.bool, device=srng.device), n, 0])
+
+
+def count_k1_sample_carry(srng, carry, mask_src="storage",
+                          live=None) -> dict:
+    """The same for ``sample_carry(srng, carry, mask_src, live)``, run on
+    a copy of ``carry`` (its rng_tainted row is written in place)."""
+    n = srng.shape[0]
+    return counter("sample.cu", "sample_kernelILb1E")(
+        -(-n // 32), 32, 0,
+        [srng, torch.empty_like(srng), None, carry.clone(), live,
+         torch.empty((n, 5), dtype=torch.int32, device=srng.device), None,
+         n, int(mask_src == "sel")])
 
 
 def count_k2(carry, n_players, player_xy, req, nr, end, idx=None) -> dict:

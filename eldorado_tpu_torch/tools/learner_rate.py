@@ -1,0 +1,169 @@
+"""The learner's loop on the card, tree against tree: VecEnv's rate and
+where a round's host time goes.
+
+    python -m eldorado_tpu_torch.tools.learner_rate [--trees DIR ...]
+        [--envs 4096] [--rounds 1000] [--profiled 20] [--device cuda]
+
+For each checkout of the repo named in ``--trees`` (default: this one),
+in turns (the list, then the list reversed: A, B, B, A), a fresh
+process imports ``eldorado_tpu_torch`` from that checkout, so that two
+commits are compared on the same card in one run. Each process runs
+``VecEnv(envs)``'s ``step(sample())`` loop from the main path's reset
+(seed 12345, 4 players, 3 pieces, EASY, sampler seed 42): 10 rounds to
+warm up, then ``--rounds`` rounds timed whole (env-steps/s, and per
+block of 100 rounds) with each round's time in ``sample()`` and in
+``step()`` read apart on the host's clock (``step`` reads the counts
+back, so it waits for the card), the card's SM clock read by nvidia-smi
+before and after, then
+``--profiled`` rounds under ``torch.profiler``: each operation's host
+time per round (its self time on the CPU, aten ops and CUDA runtime
+calls) and the card's busy time per round. The checkout's own build
+directory holds its kernels. The last line is a JSON object of every
+number printed. Needs a CUDA device unless ``--device cpu`` (a dry run at
+a small ``--envs``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+
+def _child(root: str, envs: int, rounds: int, profiled: int,
+           device: str) -> dict:
+    """One checkout's numbers (see the module's docstring), in a process
+    started on this file, whose own directory leads sys.path."""
+    sys.path[0] = root
+    import torch
+    import eldorado_tpu_torch as et
+    env = et.VecEnv(envs, device=device)
+    env.reset(seed=12345, max_steps=100000, sampler_seed=42)
+    sync = torch.cuda.synchronize if device == "cuda" else lambda: None
+    for _ in range(10):
+        env.step(env.sample())
+    sync()
+    clocks = [_sm_clock()]
+    t_sample = t_step = 0.0
+    t0 = time.perf_counter()
+    blocks = []
+    for i in range(rounds):
+        a = time.perf_counter()
+        acts = env.sample()
+        b = time.perf_counter()
+        env.step(acts)
+        t_step += time.perf_counter() - b
+        t_sample += b - a
+        if i % 100 == 99:
+            blocks.append(time.perf_counter())
+    sync()
+    wall = time.perf_counter() - t0
+    clocks.append(_sm_clock())
+    blocks = [envs * 100 / (t - s) for s, t in zip([t0] + blocks, blocks)]
+    kinds = [torch.profiler.ProfilerActivity.CPU]
+    if device == "cuda":
+        kinds.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=kinds) as prof:
+        for _ in range(profiled):
+            with torch.profiler.record_function("round.sample"):
+                acts = env.sample()
+            with torch.profiler.record_function("round.step"):
+                env.step(acts)
+        sync()
+    host, card = {}, {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            card[ev.key] = getattr(ev, "self_device_time_total", None) \
+                or getattr(ev, "self_cuda_time_total", 0.0)
+            card[ev.key] /= profiled
+        elif ev.key.startswith("round."):
+            host[ev.key] = ev.cpu_time_total / profiled
+        else:
+            host[ev.key] = ev.self_cpu_time_total / profiled
+    host = dict(sorted(host.items(), key=lambda kv: -kv[1]))
+    return {"root": root, "envs": envs, "rounds": rounds,
+            "rate": envs * rounds / wall,
+            "round_us": 1e6 * wall / rounds,
+            "sample_us": 1e6 * t_sample / rounds,
+            "step_us": 1e6 * t_step / rounds,
+            "rate_per_100_rounds": blocks, "sm_clock_before_after": clocks,
+            "profiled_rounds": profiled,
+            "host_us_per_round": host,
+            "device_us_per_round": card,
+            "device_busy_us_per_round": sum(
+                v for k, v in card.items() if not k.startswith("round."))}
+
+
+def report(row: dict) -> list:
+    lines = [f"{row['root']}: {row['rate']:.0f} env-steps/s at "
+             f"{row['envs']} envs, a round {row['round_us']:.1f} us "
+             f"(sample {row['sample_us']:.1f}, step {row['step_us']:.1f}, "
+             f"unprofiled); per 100 rounds "
+             f"{[round(r) for r in row['rate_per_100_rounds']]}; SM clock "
+             f"before / after {row['sm_clock_before_after']}; under the "
+             f"profiler, per round: card busy "
+             f"{row['device_busy_us_per_round']:.1f} us"]
+    lines += [f"  host {k}: {v:.1f} us"
+              for k, v in row["host_us_per_round"].items() if v >= 0.5]
+    lines += [f"  device {k}: {v:.2f} us"
+              for k, v in row["device_us_per_round"].items()]
+    return lines
+
+
+def _smi(query: str) -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired):
+        return "unknown"
+
+
+def _card() -> str:
+    return _smi("name,power.limit")
+
+
+def _sm_clock() -> str:
+    return _smi("clocks.sm")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--trees", nargs="+",
+                    default=[str(Path(__file__).resolve().parents[2])])
+    ap.add_argument("--envs", type=int, default=4096)
+    ap.add_argument("--rounds", type=int, default=1000)
+    ap.add_argument("--profiled", type=int, default=20)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        print(json.dumps(_child(args.child, args.envs, args.rounds,
+                                args.profiled, args.device)))
+        return
+    import torch
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("learner_rate: no CUDA device; pass --device cpu "
+                           "for a dry run")
+    print(_card(), flush=True)
+    trees = [str(Path(t).resolve()) for t in args.trees]
+    rows = []
+    for root in trees + trees[::-1]:
+        out = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--child", root,
+             "--envs", str(args.envs), "--rounds", str(args.rounds),
+             "--profiled", str(args.profiled), "--device", args.device],
+            capture_output=True, text=True, cwd=root, check=False)
+        if out.returncode != 0:
+            raise RuntimeError(f"learner_rate in {root} failed:\n"
+                               f"{out.stderr[-4000:]}")
+        rows.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        for line in report(rows[-1]):
+            print(line, flush=True)
+    print(json.dumps({"card": _card(), "turns": rows}))
+
+
+if __name__ == "__main__":
+    main()

@@ -4,7 +4,8 @@ Port of ``eldorado_tpu/vec.py``. The env batch is the leading axis of every
 `EnvState` field. Self-play runs as K1 (`ops.step_kernel.fused_step`: the
 sample and the step fused, a whole chunk per launch); a learner's own
 actions step as K1-act (`ops.step_kernel.step_actions`, one step a
-launch) and its sampler is K1-sample (`ops.step_kernel.sample`). Every
+launch) and its sampler is K1-sample (`ops.step_kernel.sample`; VecEnv's
+reads the masks from the carry, `ops.step_kernel.sample_carry`). Every
 reset runs K3 (map generation and its prelude, `core.mapgen.launch`) then
 K2 (`ops.step_kernel.fused_reset`), both on the batch's own rows and
 columns. The device of the input tensors decides where everything runs:
@@ -25,7 +26,8 @@ from .devices import resolve
 from .errors import GenerateMapFailure, MapCapacityError
 from .ops import rng as R
 from .ops import step_kernel as K
-from .ops.step_kernel import fused_reset, fused_step, sample, step_actions
+from .ops.step_kernel import (fused_reset, fused_step, sample, sample_carry,
+                              step_actions)
 
 __all__ = ["VecEnv", "vec_reset", "vec_reset_varied", "vec_step",
            "vec_sample", "rollout", "rollout_chunked", "kernel_rollout",
@@ -181,18 +183,6 @@ def _step_columns(carry, static, actions):
         idx = torch.sort(key).values[:n_done].to(_i32)
         _reset_columns(carry, static, idx, queue_flags=False)
     return carry, done
-
-
-def _mask_words(carry, mask_src: str):
-    """Each env's active mask as (n, 3) int32 words, read from the carry:
-    its agent's storage row, or its sel mask."""
-    if mask_src == "sel":
-        words = carry[_OFF["sel_mask"]:_OFF["sel_mask"] + E.MASK_WORDS]
-    else:
-        rows = (_OFF["storage_masks"] + E.MASK_WORDS * carry[_OFF["agent"]]
-                + torch.arange(E.MASK_WORDS, device=carry.device)[:, None])
-        words = torch.gather(carry, 0, rows.long())
-    return words.t().contiguous()
 
 
 def _actions(actions, device):
@@ -474,10 +464,10 @@ class VecEnv:
 
     def sample(self):
         """K1-sample on each env's active mask (its agent's storage row, or
-        the sel mask); the tainted flags OR into ``rng_tainted``."""
-        actions, self.sampler_rngs, tainted = sample(
-            self.sampler_rngs, _mask_words(self._carry, self.mask_src))
-        self._carry[_OFF["rng_tainted"]] |= tainted.to(_i32)
+        the sel mask), read from the carry; the tainted flags OR into
+        ``rng_tainted``. One launch on the card (`sample_carry`)."""
+        actions, self.sampler_rngs = sample_carry(
+            self.sampler_rngs, self._carry, self.mask_src)
         return actions
 
     @property

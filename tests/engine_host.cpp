@@ -4,7 +4,10 @@
 // (the kernel's shared-memory slot, padded stride and all), stepped, and
 // written back, with the kernel's argument layout. Beside it the per-env
 // work of K1-act (csrc/step_actions.cu: ed::actions_in_heads, then
-// ed::step_given) and of K1-sample (csrc/sample.cu: ed::sample_action).
+// ed::step_given) and of K1-sample (csrc/sample.cu: ed::sample_action);
+// the sampler's SMALL_RANGE table and nth_set_bit (rng.cuh, engine.cuh);
+// and K1-act's block staging plan (ed::tile_plan and its kin), looped as
+// the kernel loops it.
 #include <stdint.h>
 
 #include <vector>
@@ -113,5 +116,50 @@ extern "C" void ed_host_sample(const int* srng_in, int* srng_out,
                       actions + 5 * e, t);
     srng_out[e] = (int)rng;
     tainted[e] = (unsigned char)t;
+  }
+}
+
+// SMALL_RANGE row n: out = scaling, past, magic, shift.
+extern "C" void ed_host_small_range(int n, uint32_t* out) {
+  const ed::SmallRange& row = ed::SMALL_RANGE[n];
+  out[0] = row.scaling;
+  out[1] = row.past;
+  out[2] = row.magic;
+  out[3] = (uint32_t)row.shift;
+}
+
+// q[i] = r[i] / SMALL_RANGE[n].scaling by the row's reciprocal.
+extern "C" void ed_host_small_quotient(int n, const uint32_t* r, uint32_t* q,
+                                       int count) {
+  for (int i = 0; i < count; ++i)
+    q[i] = ed::small_quotient(ed::SMALL_RANGE[n], r[i]);
+}
+
+// out[i] = nth_set_bit(f[i], pos[i]) (the host branch).
+extern "C" void ed_host_nth_set_bit(const uint32_t* f, const int* pos,
+                                    int* out, int count) {
+  for (int i = 0; i < count; ++i) out[i] = ed::nth_set_bit(f[i], pos[i]);
+}
+
+// K1-act's staging over an n-env carry in blocks of ed::kActEnvs envs
+// and ed::kActWarps warps, as the kernel runs it; ``vec_ok``: the carries
+// are 16-byte aligned. Adds 1 to staged[f * n + e] for every (field, env)
+// a unit moves in (the way out is the same plan).
+extern "C" void ed_host_tile_cover(int n, int vec_ok, int* staged) {
+  const int G = ed::kActEnvs, threads = 32 * ed::kActWarps;
+  const bool vec = vec_ok && n % 4 == 0;
+  for (int e0 = 0; e0 < n; e0 += G) {
+    const int V = G < n - e0 ? G : n - e0;
+    const ed::TilePlan p = ed::tile_plan(V, vec ? 4 : 1, threads,
+                                         ed::kActUnits);
+    for (int pass = 0; pass < p.passes; ++pass)
+      for (int k = 0; k < ed::kActUnits; ++k)
+        for (int tid = 0; tid < threads; ++tid) {
+          const int u = ed::tile_unit(p, threads, tid, pass, k);
+          if (u >= p.units) continue;
+          int f, e;
+          ed::tile_field_env(p, u, f, e);
+          for (int j = 0; j < p.width; ++j) ++staged[f * n + e0 + e + j];
+        }
   }
 }

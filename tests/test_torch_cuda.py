@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions on the card: K1 (with and
 without the learner feed's records, and with the trajectory record), K2
 (new columns and in place), K3 (map generation and its prelude, in every
-launch shape), the learner's step and sampler (K1-act, K1-sample) and
+launch shape), the learner's step and sampler (K1-act at widths that
+take each staging path, K1-sample from mask words and from the carry) and
 K1's cost probes (K1-null, P1 null copy, P2 op chain, P3
 step prefix); the rollout, the feed, VecEnv and rollout / kernel_rollout,
 CUDA against CPU; the card path (K1, then K3 and K2 at every game's end)
@@ -20,7 +21,6 @@ import torch
 import eldorado_tpu_torch as et
 import traj_replay as TR
 from eldorado_tpu_torch import stream as S
-from eldorado_tpu_torch import vec as V
 from eldorado_tpu_torch.core import engine as TE
 from eldorado_tpu_torch.core import mapgen as MG
 from eldorado_tpu_torch.ops import probes as P
@@ -368,7 +368,7 @@ def test_step_actions_equal_plain(dev, probe_state):
     launches = K.step_actions.launches
     for t in range(30):
         if t % 2:
-            act, r, _ = K.sample(r, V._mask_words(carry, "storage"))
+            act, r, _ = K.sample(r, K.mask_words(carry, "storage"))
         else:
             act = torch.as_tensor(gen.integers(0, 1 << 20, (256, 5)) % widths,
                                   dtype=torch.int32, device=dev)
@@ -394,6 +394,63 @@ def test_step_actions_refuses_out_of_range(dev, probe_state):
             with pytest.raises(ValueError):
                 K.step_actions(c, act, *(t.to(d) for t in static))
         assert torch.equal(c, before)
+
+
+def _act_state(dev, n):
+    """n envs 40 sampled steps into 2-player games that end at 12 turns."""
+    s = et.vec_reset(17, n, 2, 1, 0, 12, device=dev)
+    static = (s.map_ids, s.min_xy, s.n_players, s.max_steps)
+    carry, r, _ = K.fused_step(TE.pack_dyn(TE.split_state(s)[1]),
+                               et.sampler_init(6, n, device=dev), *static, 40)
+    return carry, r, static
+
+
+@pytest.mark.parametrize("n", [1, 3, 31, 4096, 4097, 4100])
+def test_step_actions_staging_equal_plain(dev, n):
+    """K1-act against step_actions_plain over 6 steps (sampled actions on
+    odd steps, random in-head actions on even ones): the carry and the
+    done count after each; staged by 16-byte units where n % 4 == 0, by
+    words elsewhere."""
+    carry, r, static = _act_state(dev, n)
+    gen = np.random.default_rng(n)
+    widths = np.asarray(K.HEAD_WIDTHS)
+    for t in range(6):
+        if t % 2:
+            act, r, _ = K.sample(r, K.mask_words(carry, "storage"))
+        else:
+            act = torch.as_tensor(gen.integers(0, 1 << 20, (n, 5)) % widths,
+                                  dtype=torch.int32, device=dev)
+        got, n_done = K.step_actions(carry, act, *static)
+        want, counts = K.step_actions_plain(carry, act, *static)
+        assert torch.equal(got, want), t
+        assert n_done == int(counts[1]) and int(counts[0]) == 0, t
+        assert K.step_actions.last_path == ("word", "16-byte")[n % 4 == 0]
+        carry = got
+
+
+@pytest.mark.parametrize("mask_src", ["storage", "sel"])
+@pytest.mark.parametrize("live", [False, True])
+def test_sample_carry_equal_plain(dev, probe_state, mask_src, live):
+    """K1-sample reading its masks from the carry, one launch, against
+    mask_words + sample_plain + the OR into rng_tainted, on the probe
+    state with rng_tainted set at random: actions, srng and the carry."""
+    carry, r, _ = probe_state
+    n = carry.shape[1]
+    gen = np.random.default_rng(5)
+    carry = carry.clone()
+    row = [o for f, _, _, o, _ in TE.DYN_LAYOUT if f == "rng_tainted"][0]
+    carry[row] = torch.as_tensor(gen.random(n) < 0.5, dtype=torch.int32,
+                                 device=dev)
+    flags = (torch.as_tensor(gen.random(n) < 0.7, device=dev) if live
+             else None)
+    got_c, want_c = carry.clone(), carry.clone()
+    launches = (K.sample.launches, K.sample.carry_launches)
+    got = K.sample_carry(r, got_c, mask_src, flags)
+    want = K.sample_carry_plain(r, want_c, mask_src, flags)
+    assert (K.sample.launches, K.sample.carry_launches) == (
+        launches[0] + 1, launches[1] + 1)
+    for a, b in zip(got + (got_c,), want + (want_c,)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("live", [False, True])

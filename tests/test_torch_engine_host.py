@@ -15,9 +15,18 @@ behind ``ed::actions_in_heads``) steps the same envs with sampled actions,
 with random actions inside the heads that the masks forbid and with a few
 outside them, against `step_actions_plain`; K1-sample's
 (``ed::sample_action``) draws from random masks, live or not, against
-`sample_plain`. Skips only where g++ is missing.
+`sample_plain`. The sampler's shortened chain: the 23-row SMALL_RANGE
+table against the divisions it replaces (and its reciprocals against the
+quotient's), the host branch of nth_set_bit against a bit scan in numpy
+on seeded width-22 masks and every position. K1-act's block staging
+plan, looped as its kernel loops it, at n = 1, 3, 31, 4096, 4097 and
+4100 (a last block of 4 envs by 16-byte units):
+every (field, env) staged exactly once; its block's constants in
+engine.cuh against `step_kernel.ACT_ENVS` and kin. Skips only where g++
+is missing.
 """
 import ctypes
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -28,7 +37,6 @@ import torch
 
 import eldorado_tpu_torch as et
 from eldorado_tpu_torch import stream as S
-from eldorado_tpu_torch import vec as V
 from eldorado_tpu_torch.core import engine as E
 from eldorado_tpu_torch.ops import build
 from eldorado_tpu_torch.ops import step_kernel as K
@@ -55,6 +63,11 @@ def host_lib(tmp_path_factory):
     lib.ed_host_fused_step.restype = ctypes.c_int
     lib.ed_host_step_actions.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int]
     lib.ed_host_sample.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int]
+    lib.ed_host_small_range.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.ed_host_small_quotient.argtypes = [ctypes.c_int] \
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    lib.ed_host_nth_set_bit.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.ed_host_tile_cover.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
     return lib
 
 
@@ -164,7 +177,7 @@ def test_engine_host_step_actions_equal_plain(host_lib, start):
     for t in range(60):
         if t % 2:
             act, srng, _ = K.sample_plain(srng,
-                                          V._mask_words(carry, "storage"))
+                                          K.mask_words(carry, "storage"))
         else:
             act = torch.as_tensor(gen.integers(0, 1 << 20, (N, 5)) % widths,
                                   dtype=torch.int32)
@@ -204,3 +217,77 @@ def test_engine_host_sample_equal_plain(host_lib, live):
         assert torch.equal(x, y), name
     if live:
         assert torch.equal(srng_out[~flags], srng[~flags])
+
+
+URNG_RANGE = 2147483645   # libstdc++ minstd_rand0: max - min
+
+
+def test_small_range_table_equals_division(host_lib):
+    """Every row of rng.cuh's SMALL_RANGE: scaling and past as
+    uniform_int_fast computes them (row 0 is row 1, the clamp), and the
+    reciprocal's quotient equal to r // scaling on each multiple of
+    scaling and its neighbours up to 2^31 and on 100,000 seeded r."""
+    gen = np.random.default_rng(11)
+    row = np.zeros(4, np.uint32)
+    for n in range(23):
+        m = max(n, 1)
+        host_lib.ed_host_small_range(n, row.ctypes.data)
+        scaling = URNG_RANGE // m
+        assert (int(row[0]), int(row[1])) == (scaling, m * scaling), n
+        mult = np.arange(0, (1 << 31) // scaling + 2, dtype=np.int64)
+        r = np.concatenate([(mult[:, None] * scaling
+                             + np.arange(-2, 3)).ravel(),
+                            gen.integers(0, 1 << 31, 100_000),
+                            [(1 << 31) - 1]])
+        r = r[(r >= 0) & (r < 1 << 31)].astype(np.uint32)
+        q = np.empty_like(r)
+        host_lib.ed_host_small_quotient(n, r.ctypes.data, q.ctypes.data,
+                                        len(r))
+        assert np.array_equal(q, r // np.uint32(scaling)), n
+
+
+def test_nth_set_bit_host_equals_scan(host_lib):
+    """nth_set_bit's host branch (the scan __fns replaces on the card)
+    against numpy's scan, on 4,096 seeded width-22 masks (full, single
+    bits and random densities) at every position below the popcount."""
+    gen = np.random.default_rng(12)
+    masks = np.concatenate([
+        [(1 << 22) - 1], 1 << np.arange(22),
+        (gen.random((4096 - 23, 22)) < gen.random((4096 - 23, 1)))
+        @ (1 << np.arange(22))]).astype(np.uint32)
+    bits = (masks[:, None] >> np.arange(22)) & 1
+    f, pos, want = [], [], []
+    for m, b in zip(masks, bits):
+        where = np.flatnonzero(b)
+        f += [m] * len(where)
+        pos += range(len(where))
+        want += list(where)
+    f = np.asarray(f, np.uint32)
+    pos = np.asarray(pos, np.int32)
+    got = np.empty(len(f), np.int32)
+    host_lib.ed_host_nth_set_bit(f.ctypes.data, pos.ctypes.data,
+                                 got.ctypes.data, len(f))
+    assert np.array_equal(got, np.asarray(want, np.int32))
+
+
+def test_act_block_constants_match_header():
+    """engine.cuh's kActEnvs, kActWarps and kActUnits (K1-act's block) are
+    step_kernel's ACT_ENVS, ACT_WARPS and ACT_UNITS, and one pass of the
+    block's threads stages a full tile of 16-byte units."""
+    text = (build.CSRC / "engine.cuh").read_text()
+    got = [int(re.search(rf"constexpr int kAct{k} = (\d+);", text)[1])
+           for k in ("Envs", "Warps", "Units")]
+    assert got == [K.ACT_ENVS, K.ACT_WARPS, K.ACT_UNITS]
+    units = E.CARRY_WORDS * K.ACT_ENVS // 4
+    assert K.ACT_UNITS == -(-units // (32 * K.ACT_WARPS))
+
+
+@pytest.mark.parametrize("n", [1, 3, 31, 4096, 4097, 4100])
+def test_tile_plan_covers_every_word_once(host_lib, n):
+    """K1-act's staging plan: the units of every block (16-byte ones where
+    n % 4 == 0, words elsewhere) move each (field, env) of the carry
+    exactly once; with unaligned carries (words throughout) likewise."""
+    for vec_ok in (1, 0) if n % 4 == 0 else (1,):
+        staged = np.zeros(E.CARRY_WORDS * n, np.int32)
+        host_lib.ed_host_tile_cover(n, vec_ok, staged.ctypes.data)
+        assert np.array_equal(staged, np.ones_like(staged)), vec_ok

@@ -213,7 +213,8 @@ def test_step_prefix_cut3_equals_plain_step(mid_game, n_steps):
 
 # ------------------------------------------------------------------ tools
 @pytest.mark.parametrize("name", ["step_cost", "null_kernel", "op_cost",
-                                  "prefix_profile"])
+                                  "prefix_profile", "sample_cost",
+                                  "learner_rate"])
 def test_tool_refuses_without_gpu(monkeypatch, name):
     mod = importlib.import_module(f"eldorado_tpu_torch.tools.{name}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

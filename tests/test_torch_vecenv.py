@@ -117,6 +117,29 @@ def test_vec_sample_equals_jax(live):
                               tr.numpy()[~flags])
 
 
+@pytest.mark.parametrize("mask_src", ["storage", "sel"])
+def test_sample_carry_equals_jax_vecenv_sample(mask_src):
+    """K1-sample reading its masks from the carry (`sample_carry`, its
+    plain route here) against the JAX package's VecEnv.sample: 12 rounds
+    of sample then step from the reset, with either mask source, each
+    round's actions, the engines and every field (rng_tainted, into which
+    the tainted flags OR) equal; each round one carry read and no
+    separate mask table."""
+    js, jr, ts, tr = both()
+    ref = JV.VecEnv(N, mask_src)
+    ref.states, ref.sampler_rngs = js, jr
+    static, carry = et.vec._split(ts)
+    for t in range(12):
+        want = np.asarray(ref.sample())
+        acts, tr = K.sample_carry(tr, carry, mask_src)
+        assert np.array_equal(acts.numpy(), want), t
+        assert np.array_equal(convert.rngs_to_numpy(tr),
+                              np.asarray(ref.sampler_rngs)), t
+        assert_states_equal(et.vec._merge(static, carry), ref.states, t)
+        carry, _ = et.vec._step_columns(carry, static, acts)
+        ref.step(want)
+
+
 STEPS = 30
 
 
