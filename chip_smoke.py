@@ -20,7 +20,9 @@ before the final line:
    shared memory) and, in its queue form, a 128-env reset queue of
    mid-game envs writing the batch's rows;
 2. K2 (fused_reset) against its plain version: vec_reset at 4096 envs,
-   then in place on the 128-env queue's columns of the batch carry;
+   then in place on the 128-env queue's columns of the batch carry; then
+   at q = 1, 8, 31, 33, 128, 4096 and 4097 envs, in place on unsorted
+   columns of a 4100-env mid-game batch and into a new carry from them;
 3. K1 (fused_step) against its plain version: 1024 envs, 64 steps, with
    the storage mask, the sel mask, and gate_dead;
 4. the slice, CUDA against CPU: rollout_chunked at 512 envs; then the
@@ -37,7 +39,10 @@ before the final line:
    K1's launch shape (threads, blocks, shared bytes per block, blocks
    resident per SM) and its ms per step at 8192 and 16384 envs; K3's
    launch shape and its ms per 128-env queue and at 4096 envs in every
-   launch shape (both places of the pair table);
+   launch shape (both places of the pair table); K2 in place on queues of
+   1, 8 and 128 envs of the mid-game carry and into a new carry at 4096
+   envs, each beside an empty kernel on its grid (its launch floor), and
+   the bytes its design moves beside those its bound counts;
 6. K1's cost probes on the carry phase 5 leaves: K1-null, P1 (null
    copy), P2 (op chain,
    nine shapes, both ops, k=4096) and P3 (step prefix, cuts 0-3 over 8
@@ -135,10 +140,13 @@ integer instructions on the SM's 64 int32 lanes, loads and stores on its
 whichever takes longest. The instructions of K1, K1-null, K2, K3 and P3 are
 counted by kind by a profiling build run on the timed inputs
 (eldorado_tpu_torch/tools/inst_count.py: PTX instructions per thread;
-phase 5 sets K1's static SASS count beside its PTX count); K3's are its
-work, the same per-env code run one thread per env (count_k3_work), not
-the copies of its scalar chain in the other lanes of its warp, whose sum
-phase 5 prints beside it; P1 does no arithmetic; P2's are its k ops per
+phase 5 sets K1's static SASS count beside its PTX count); K3's and K2's
+are their work, the same per-env code run one thread per env
+(count_k3_work, count_k2_work), not the copies of the scalar chain in the
+other lanes of each warp, whose sums phase 5 prints beside them; K2's
+bytes are each column in and out, as its first design moved them, and
+phase 5 prints the bytes its design moves beside them; P1 does no
+arithmetic; P2's are its k ops per
 element. P1 and K1-null are timed
 with the L2 evicted before each launch, so that their bytes come from
 HBM as their bound assumes. For P1 it also times one PyTorch call that
@@ -169,6 +177,9 @@ PREFIX_STEPS = 8   # phase 6: P3 against plain over this many steps
 OP_K = 4096        # phase 6: P2's chain length
 WIDE = (8192, 16384)   # phase 5: K1's ms per step at these env counts
 Q = 128            # phases 1, 2 and 5: the reset queue's width
+K2_WIDTHS = (1, 8, 31, 33, 128, 4096, 4097)   # phase 2: K2 against plain
+K2_BATCH = 4100    # phase 2: the batch K2 resets those widths of in place
+K2_TIMED = (1, 8, 128)   # phase 5: K2 in place at these queue widths
 ACT_STEPS = 8      # phase 8a: K1-act and K1-sample against plain
 ACT_WIDTHS = (1, 4096, 4097, 16384)   # phase 8a: K1-act's staging paths
 VEC_N, VEC_STEPS, VEC_TURNS = 512, 200, 20   # phase 8c: VecEnv, CPU vs CUDA
@@ -307,6 +318,24 @@ def k1_bytes(n: int, steps: int, live: int, words: int = 0) -> int:
     ball = min(live * E.N_BALL * 4, n * E.GRIDSIZE * E.GRIDSIZE * 4)
     return n * (2 * E.CARRY_WORDS * 4 + 8 + 20 + 16) + ball \
         + steps * n * words * 4
+
+
+def k2_moved_bytes(n_players, in_place: bool) -> int:
+    """The bytes K2's design moves for envs with these player counts: in
+    place, the nine words of RESET_READS in and the words the reset writes
+    out (57 a column and 98 a live player: csrc/engine.cuh's
+    reset_writes); into a new carry, the words it reads or keeps in (five
+    of the nine are written) and the whole column out; and the inputs (the
+    column index in place, n_players, player_xy and the three ball
+    rows)."""
+    from eldorado_tpu_torch.core import engine as E
+    q = int(n_players.numel())
+    written = 57 * q + 98 * int(n_players.sum())
+    inputs = q * (4 + 8 * 4 + 3 * 4 * E.N_BALL * 4 + (4 if in_place else 0))
+    if in_place:
+        return 4 * (9 * q + written) + inputs
+    return 4 * ((E.CARRY_WORDS + 5) * q - written + E.CARRY_WORDS * q) \
+        + inputs
 
 
 def k1_bound(c, srng, static, steps: int, dead: int, record=None) -> tuple:
@@ -470,6 +499,39 @@ def main():
     print(f"phase 2: K2 in place == gather + plain reset_body + scatter on "
           f"a {Q}-env queue of the mid-game batch carry; no other column "
           "touched")
+    # every width, in place (unsorted columns of a 4100-env mid-game batch)
+    # and into a new carry (those columns)
+    wide = torch.cat([stepped, stepped[:, :K2_BATCH - N_MAIN]], 1)
+    w_static = {f: torch.cat([getattr(states, f),
+                              getattr(states, f)[:K2_BATCH - N_MAIN]])
+                for f in ("n_players", "n_pieces", "difficulty")}
+    order = torch.randperm(K2_BATCH, generator=torch.Generator().manual_seed(
+        13)).to(dev)
+    for q in K2_WIDTHS:
+        cols = order[:q]
+        q_idx = cols.to(torch.int32)
+        _, w_xy, w_ball = E.reset_map_prelude(
+            wide[0][cols], *(w_static[f][cols] for f in
+                             ("n_pieces", "difficulty", "n_players")))
+        w_args = (w_static["n_players"], w_xy, *w_ball)
+        got = K.fused_reset(wide.clone(), *w_args, idx=q_idx)
+        want = K.fused_reset_plain(wide.clone(), *w_args, idx=q_idx)
+        err_k2 = max(err_k2, expect_equal(f"phase 2 (q={q}, in place)",
+                                          carry_fields(got),
+                                          carry_fields(want)))
+        out = torch.ones(K2_BATCH, dtype=torch.bool, device=dev)
+        out[cols] = False
+        if not torch.equal(got[:, out], wide[:, out]):
+            fail(f"phase 2: K2 (q={q}) wrote columns outside the queue")
+        new_args = (wide[:, cols].contiguous(), w_static["n_players"][cols],
+                    w_xy, *w_ball)
+        err_k2 = max(err_k2, expect_equal(
+            f"phase 2 (q={q}, new carry)",
+            carry_fields(K.fused_reset(*new_args)),
+            carry_fields(K.fused_reset_plain(*new_args))))
+    print(f"phase 2: K2 == plain at q = {list(K2_WIDTHS)}, in place on "
+          f"unsorted columns of a {K2_BATCH}-env mid-game batch (no other "
+          "column touched) and into a new carry from those columns")
 
     # ---- phase 3: K1 against its plain version ------------------------
     n3 = 1024
@@ -653,6 +715,24 @@ def main():
         *q_in, k3_maps))
     ms_k2, _ = cuda_ms(lambda: K.fused_reset(q_carry, *q_args, idx=idx),
                        reps=20, ahead=True)
+    # K2 in place at every timed width on the same mid-game carry, each
+    # beside an empty kernel on its grid (its launch floor)
+    k2_widths = {}
+    for q in K2_TIMED:
+        q_idx = torch.arange(0, N_MAIN, N_MAIN // q, device=dev,
+                             dtype=torch.int32)
+        rows_q = q_idx.long()
+        _, t_xy, t_ball = E.reset_map_prelude(
+            stepped[0][rows_q], q_states.n_pieces[rows_q],
+            q_states.difficulty[rows_q], q_states.n_players[rows_q])
+        t_carry = stepped.clone()
+        ms_q, _ = cuda_ms(lambda: K.fused_reset(
+            t_carry, q_states.n_players, t_xy, *t_ball, idx=q_idx), reps=20,
+            ahead=True)
+        K.launch_empty(32 * q, dev)   # loads it
+        floor_q, _ = cuda_ms(lambda: K.launch_empty(32 * q, dev), reps=20,
+                             ahead=True)
+        k2_widths[q] = (ms_q, floor_q)
     ms_plain2, _ = cuda_ms(lambda: K.fused_reset_plain(q_carry, *q_args,
                                                        idx=idx), reps=2)
     queue_ms = []
@@ -698,18 +778,29 @@ def main():
     # per env and the pair table, and writes the map row, min_xy, the
     # two flags and the queue outputs
     queue_out = 8 * 4 + 3 * 4 * E.N_BALL * 4
-    ops_k2 = IC.count_k2(stepped, *q_args, idx=idx)
+    ops_k2 = IC.count_k2_work(stepped, *q_args, idx=idx)
+    ops_k2_warp = IC.count_k2(stepped, *q_args, idx=idx)
     bound_k2, by_k2 = bound(Q * (2 * E.CARRY_WORDS * 4 + 8 + queue_out),
                             ops_k2)
+    moved_k2 = k2_moved_bytes(q_states.n_players[idx.long()],
+                              in_place=True)
     ops_k3 = IC.count_k3_work(*q_in)
     ops_k3_warp = IC.count_k3(*q_in)
     bound_k3, by_k3 = bound(
         Q * (5 * 4 + E.GRIDSIZE ** 2 * 4 + 8 + 2 + queue_out)
         + MG._K(dev).ovl.numel() * 4, ops_k3)
     print(f"phase 5: K2 bound {bound_k2:.6f} ms per {Q}-env queue "
-          f"({by_k2}; {sum(ops_k2.values()) / Q:.0f} PTX instructions per "
-          f"env: {per_kind(ops_k2, Q)}): K2 takes {ms_k2 / bound_k2:.1f}x "
-          "its bound")
+          f"({by_k2}; its work {sum(ops_k2.values()) / Q:.0f} PTX "
+          f"instructions per env, one thread per env: {per_kind(ops_k2, Q)};"
+          f" K2's warps execute {sum(ops_k2_warp.values()) / Q:.0f} per env "
+          f"over their 32 lanes: {per_kind(ops_k2_warp, Q)}): K2 takes "
+          f"{ms_k2 / bound_k2:.1f}x "
+          f"its bound; the design moves {moved_k2} bytes of the bound's "
+          f"{Q * (2 * E.CARRY_WORDS * 4 + 8 + queue_out)}")
+    for q, (ms_q, floor_q) in k2_widths.items():
+        print(f"phase 5: K2 in place, {q}-env queue of the mid-game carry: "
+              f"{ms_q:.4f} ms, launch floor (an empty kernel on its grid) "
+              f"{floor_q:.4f} ms")
     # the same kernels at the reset's full width (vec_reset: 4096 envs,
     # 128 warps on 128 SMs)
     ms_k3_full, _ = cuda_ms(lambda: E.reset_map_prelude(
@@ -717,8 +808,13 @@ def main():
         ahead=True)
     ms_k2_full, _ = cuda_ms(lambda: K.fused_reset(
         carry0, s0.n_players, pxy, req, nr, end), reps=20, ahead=True)
+    floor_full, _ = cuda_ms(lambda: K.launch_empty(
+        32 * N_MAIN, dev, 32 * K.RESET_ENVS), reps=20, ahead=True)
     print(f"phase 5: at {N_MAIN} envs (vec_reset): K3 {ms_k3_full:.4f} ms, "
-          f"K2 {ms_k2_full:.4f} ms per launch")
+          f"K2 into a new carry {ms_k2_full:.4f} ms per launch (launch floor "
+          f"{floor_full:.4f} ms; the design moves "
+          f"{k2_moved_bytes(s0.n_players, in_place=False)} bytes, each column "
+          f"in and out {N_MAIN * 2 * E.CARRY_WORDS * 4})")
     print(f"phase 5: K3 bound {bound_k3:.6f} ms per {Q}-env queue "
           f"({by_k3}; its work {sum(ops_k3.values()) / Q:.0f} PTX "
           f"instructions per env, one thread per env: {per_kind(ops_k3, Q)};"
@@ -790,7 +886,10 @@ def main():
          "launches": launches["K2"], "max_abs_err": err_k2,
          "ms": ms_k2, "plain_ms": ms_plain2, "bound_ms": bound_k2,
          "bound_by": by_k2, "library_ms": None,
-         "per": f"{Q}-env reset queue, in place"},
+         "per": f"{Q}-env reset queue, in place",
+         "ms_in_place": {q: t[0] for q, t in k2_widths.items()},
+         "launch_floor_ms": {q: t[1] for q, t in k2_widths.items()},
+         "ms_new_carry": ms_k2_full, "launch_floor_ms_new_carry": floor_full},
         {"name": "generate_map (K3)", "route": "cuda",
          "source": "eldorado_tpu_torch/csrc/mapgen.cu",
          "replaces": "eldorado_tpu/core/mapgen.py:416",

@@ -1,4 +1,5 @@
-// The game logic of the CUDA kernels: one env per thread, scalar C++.
+// The game logic of the CUDA kernels: one env per thread, scalar C++; the
+// reset (K2) one env per warp, through the lanes of lanes.cuh.
 //
 // This computes what eldorado_tpu/core/engine.py computes (fused_sample_step
 // and reset_body), written as straight branchy code instead of the JAX
@@ -22,14 +23,12 @@
 #include <stddef.h>
 #include <string.h>
 
-#include "rng.cuh"
+#include "lanes.cuh"  // and through it rng.cuh
 
 #ifdef __CUDACC__
 #define ED_CONST static __constant__ const
-#define ED_POPC(x) __popc(x)
 #else
 #define ED_CONST static const
-#define ED_POPC(x) __builtin_popcount(x)
 #endif
 
 namespace ed {
@@ -143,22 +142,26 @@ static_assert(kSlotWords % 2 == 1, "an odd stride spreads a warp's banks");
 static_assert(sizeof(EnvSlot) == 4 * kSlotWords, "slot stride");
 static_assert(offsetof(EnvSlot, env) == 0, "the slot keeps Env's offsets");
 
+// Word f of an env held as its carry column.
+ED_HD int env_word(const Env& s, int f) {
+  int v;
+  memcpy(&v, reinterpret_cast<const char*>(&s) + 4 * f, 4);
+  return v;
+}
+
+ED_HD void set_env_word(Env& s, int f, int v) {
+  memcpy(reinterpret_cast<char*>(&s) + 4 * f, &v, 4);
+}
+
 // The column of env e: word f at carry[f * n + e] (coalesced per warp).
 ED_HD void load_env(Env& s, const int* carry, int n, int e) {
-  char* dst = reinterpret_cast<char*>(&s);
-  for (int f = 0; f < kCarryWords; ++f) {
-    int v = carry[(size_t)f * n + e];
-    memcpy(dst + 4 * f, &v, 4);
-  }
+  for (int f = 0; f < kCarryWords; ++f)
+    set_env_word(s, f, carry[(size_t)f * n + e]);
 }
 
 ED_HD void store_env(const Env& s, int* carry, int n, int e) {
-  const char* src = reinterpret_cast<const char*>(&s);
-  for (int f = 0; f < kCarryWords; ++f) {
-    int v;
-    memcpy(&v, src + 4 * f, 4);
-    carry[(size_t)f * n + e] = v;
-  }
+  for (int f = 0; f < kCarryWords; ++f)
+    carry[(size_t)f * n + e] = env_word(s, f);
 }
 
 // ---- block staging (K1-act, csrc/step_actions.cu) -----------------------
@@ -937,13 +940,8 @@ ED_HD unsigned long long run_steps(Env& s, uint32_t& srng, const int* map,
 
 // The wrapping sum of the env's 570 carry words.
 ED_HD uint32_t env_word_sum(const Env& s) {
-  const char* src = reinterpret_cast<const char*>(&s);
   uint32_t sum = 0;
-  for (int f = 0; f < kCarryWords; ++f) {
-    uint32_t v;
-    memcpy(&v, src + 4 * f, 4);
-    sum += v;
-  }
+  for (int f = 0; f < kCarryWords; ++f) sum += (uint32_t)env_word(s, f);
   return sum;
 }
 
@@ -979,65 +977,280 @@ ED_HD uint32_t step_prefix(Env& s, uint32_t& srng, const int* map, int mx,
   return chk + env_word_sum(s) + srng;
 }
 
-// ---- reset -----------------------------------------------------------------
-// Player::reset (src/player.cpp:29-43); the played pile survives, the hand
-// is redrawn from the engine stream.
-ED_HD void player_reset(Env& s, int p) {
-  s.has_won[p] = s.mip[p] = s.ncf[p] = s.nmf[p] = 0;
-  s.n_removes[p] = s.steps_taken[p] = s.n_movements[p] = s.n_added[p] = 0;
-  for (int c = 0; c < kCards; ++c) {
-    s.piles[p][DRAW][c] = s.piles[p][HAND][c] = s.piles[p][ACTIVE][c] = 0;
-    s.piles[p][DISCARD][c] = START_DISCARD[c];
-  }
-  s.n_in_draw[p] = s.n_in_hand[p] = s.n_active[p] = 0;
-  null_heads(s.sel, PLAY0, 66);  // ActionMask::reset
-  for (int j = 0; j < 3; ++j) s.sel[j] |= null_word(j);
-  View v = view_of(s, p);
-  deck_draw(v, kHandSize);
-  for (int j = 0; j < 3; ++j) s.storage[p][j] = s.sel[j];
+// ---- reset (K2) ----------------------------------------------------------
+// Everything in cog_env::reset after map generation (engine.reset_body),
+// one env per warp in the lane form of lanes.cuh. The reset reads nine
+// words of the env's old column (RESET_READS) and writes the words that
+// reset_writes names; K2 (csrc/reset_kernel.cu) moves only those between
+// a column reset in place and the env's slot, and copies the others
+// through into a new carry.
+
+// K2's blocks: in place a warp a block, one env; into a new carry
+// kResetEnvs envs a block, a warp each, whose threads write the block's
+// tile out kResetUnits words a pass (tile_plan's word units).
+// ops/step_kernel.py's RESET_ENVS mirrors kResetEnvs.
+constexpr int kResetEnvs = 16;
+constexpr int kResetUnits = 6;
+
+// The words of an env's column that the reset reads before it writes
+// them: the engine and its taint flag (the deals'
+// draws), sel (each deal's mask starts from it), the resources and
+// n_in_market (update_observation's masks). Every other word it reads it
+// has written first (n_players >= 1, so agent 0's mask, which sel takes
+// last, is one of them).
+constexpr int kResetReads = 9;
+ED_CONST int RESET_READS[kResetReads] = {
+    OFF_RNG,           OFF_SEL_MASK,    OFF_SEL_MASK + 1,
+    OFF_SEL_MASK + 2,  OFF_RESOURCES,   OFF_RESOURCES + 1,
+    OFF_RESOURCES + 2, OFF_N_IN_MARKET, OFF_RNG_TAINTED};
+
+// Whether the reset writes word f of an env of n_players players: of
+// every env the engine, the positions, the shop, phase and agent, the turn
+// counter, done, sel, the w3 words and the taint flag; of each player
+// below n_players its draw, hand, active and discard piles, its 11
+// counters and its storage mask. Every other word keeps its value: the
+// played piles, idx_last, n_in_market, the resources, the rewards and the
+// info fields, and the piles, counters and mask of a player at or past
+// n_players.
+ED_HD bool reset_writes(int f, int n_players) {
+  constexpr int kPile = 5 * kCards;
+  if (f < OFF_PILES) return true;  // rng, player_xy
+  if (f < OFF_N_IN_HAND)
+    return (f - OFF_PILES) / kPile < n_players
+           && (f - OFF_PILES) % kPile / kCards != PLAYED;
+  if (f < OFF_IDX_LAST) return (f - OFF_N_IN_HAND) % 4 < n_players;
+  if (f < OFF_HAS_WON) return false;  // idx_last
+  if (f < OFF_SHOP_STOCK) return (f - OFF_HAS_WON) % 4 < n_players;
+  if (f < OFF_N_IN_MARKET) return true;  // shop_stock, in_market
+  if (f < OFF_PHASE) return false;       // n_in_market
+  if (f < OFF_RESOURCES) return true;    // phase, agent
+  if (f < OFF_TURN_COUNTER) return false;
+  if (f < OFF_STORAGE_MASKS) return true;  // turn_counter, done, sel
+  if (f < OFF_W3_CACHE) return (f - OFF_STORAGE_MASKS) / 3 < n_players;
+  if (f < OFF_REWARDS) return true;  // w3_cache
+  return f == OFF_RNG_TAINTED;       // the rewards and info fields kept
 }
 
-// Everything in cog_env::reset after map generation (engine.reset_body):
-// ``xy`` this env's (4, 2) add_players positions, ``req``/``nr``/``end``
-// its (4, 19) ball rows at them.
+// Lane l's part of loading the words RESET_READS names of column ``col``
+// of a (570, n) carry into the env's slot.
+ED_HD void load_read_set(Env& s, const int* carry, int n, int col, int l) {
+  if (l < kResetReads) {
+    const int f = RESET_READS[l];
+    set_env_word(s, f, carry[(size_t)f * n + col]);
+  }
+}
+
+// Player::reset's deal (src/player.cpp:29-43): its piles reset, the
+// player's Deck::draw of kHandSize cards recycles the discard pile, the
+// kStartDeck cards of START_DISCARD, into the draw pile, and its draw j
+// takes the engine's next value t in a range of kStartDeck - j, whichever
+// cards the draws before it picked, then the card at position t of the
+// remaining draw pile in card order. So every deal's draws, in player
+// order, can run ahead of the picks they make, and a deal is the slots it
+// takes of the start deck laid out in card order (start_slots).
+constexpr int kStartDeck = 8;
+constexpr int kResetPhase = 0;  // cog_env::reset leaves the phase INACTIVE
+static_assert(kStartDeck <= 8 && 4 * kHandSize <= kLanes,
+              "a deal's draw fits in 3 bits, its slots in 8, the draws in "
+              "the lanes");
+
+// The deals' draws: draw j (player j / kHandSize's draw j % kHandSize) is
+// the 3-bit value whose bit b is bit j of bit[b].
+struct Deal {
+  uint32_t bit[3];
+};
+
+ED_HD int deal_value(const Deal& d, int j) {
+  return (int)(((d.bit[0] >> j) & 1u) | (((d.bit[1] >> j) & 1u) << 1)
+               | (((d.bit[2] >> j) & 1u) << 2));
+}
+
+// Draw j's first attempt on the engine x0, as if every draw before it was
+// taken on its first: the engine j + 1 steps on; its value, or -1 when
+// uniform_int_fast would reject it.
+ED_HD int first_attempt(uint32_t x0, int j) {
+  const SmallRange& row = SMALL_RANGE[kStartDeck - j % kHandSize];
+  const uint32_t r = minstd_skip(x0, j + 1) - 1;
+  return r < row.past ? (int)small_quotient(row, r) : -1;
+}
+
+// The draws of the first n_players deals from the engine ``rng``, in
+// player order; a double rejection OR-ed into ``tainted``. Each lane takes
+// its own draw's first attempt (lane l, draw l), and when no draw rejects,
+// as nearly always, those are the draws and the engine ends 4 * n_players
+// steps on; else every lane runs the draws in sequence (deck_draw's
+// uniform_int_fast_maybe).
+template <class L>
+ED_HD Deal deal_draws(uint32_t& rng, int& tainted, int n_players) {
+  const int draws = kHandSize * (n_players < 4 ? n_players : 4);
+  const uint32_t x0 = rng;
+  Deal d;
+  if (L::ballot([&](int l) {
+        return l < draws && first_attempt(x0, l) < 0;
+      }) == 0u) {
+    for (int b = 0; b < 3; ++b)
+      d.bit[b] = L::ballot([&](int l) {
+        return l < draws && ((first_attempt(x0, l) >> b) & 1);
+      });
+    rng = minstd_skip(x0, draws);
+    return d;
+  }
+  d.bit[0] = d.bit[1] = d.bit[2] = 0u;
+  for (int j = 0; j < draws; ++j) {
+    const int v = uniform_int_fast_maybe(
+        rng, kStartDeck - j % kHandSize, true, tainted);
+    for (int b = 0; b < 3; ++b) d.bit[b] |= (uint32_t)((v >> b) & 1) << j;
+  }
+  return d;
+}
+
+// The slots of the start deck that hold card c: START_DISCARD's cards
+// laid out in card order, a bit a slot.
+ED_HD uint32_t start_slots(int c) {
+  int lo = 0;
+  for (int i = 0; i < kCards; ++i) lo += i < c ? START_DISCARD[i] : 0;
+  return ((1u << START_DISCARD[c]) - 1u) << lo;
+}
+
+// m |= the play and special bits of the cards in ``held`` (bit c: card
+// c), as Deck::draw sets them for each card it deals.
+ED_HD void put_hand_bits(uint32_t m[3], uint32_t held) {
+  for (int c = 0; c < kCards; ++c)
+    if ((held >> c) & 1u) {
+      put_bit(m, PLAY0 + 1 + c, 1);
+      put_bit(m, SPECIAL0 + 1 + c, CARD_SPECIAL[c] > 0);
+    }
+}
+
+// The reset of the env in slot s with the lanes L: ``xy`` its (4, 2)
+// add_players positions, ``req``/``nr``/``end`` its (4, 19) ball rows at
+// them. ``stage(l)`` runs in lane l beside the first lane step, which
+// touches none of the words RESET_READS names: K2's forms load them
+// there. Only those words need hold the env's old values.
+template <class L, class Stage>
+ED_HD void reset_env(Env& s, int n_players, const int* xy, const int* req,
+                     const int* nr, const int* end, Stage stage) {
+  L::each([&](int l) {
+    stage(l);
+    if (l == 0) {
+      s.agent = 0;
+      s.phase = kResetPhase;
+      s.done = 0;
+      s.turn_counter = 0;
+    }
+    if (l < 8) s.xy[l >> 1][l & 1] = xy[l];
+    // Shop::reset (src/cards.cpp:94-100): n_in_market untouched
+    if (l < kShop) {
+      s.shop_stock[l] = 3;
+      s.in_market[l] = SHOP_MKT0[l];
+    }
+    // player l's counters after Player::reset and its deal
+    if (l < 4 && l < n_players) {
+      s.has_won[l] = s.mip[l] = s.ncf[l] = s.nmf[l] = 0;
+      s.n_removes[l] = s.steps_taken[l] = s.n_movements[l] = 0;
+      s.n_added[l] = s.n_active[l] = 0;
+      s.n_in_draw[l] = kStartDeck - kHandSize;
+      s.n_in_hand[l] = kHandSize;
+    }
+    // player l's w3 word from its ball row (pack_ball_words), all four
+    if (l < 4) {
+      uint32_t w = 0;
+      for (int i = 0; i < 6; ++i) {
+        const int k = kBall * l + 1 + i;
+        w |= (uint32_t)cell_type_id(req[k], nr[k], end[k]) << (5 * i);
+      }
+      s.w3[l] = w | ((uint32_t)end[kBall * l] << 30);
+    }
+  });
+  L::sync();
+  // every lane, on identical registers: the deals' draws; each live
+  // player's slots of the start deck (8 bits a player in ``dealt``) and
+  // cards (bit c: card c); the mask each deal starts from, sel after
+  // ActionMask::reset
+  uint32_t rng = s.rng;
+  int tainted = s.tainted;
+  const Deal deal = deal_draws<L>(rng, tainted, n_players);
+  uint32_t dealt = 0, held[4];
+  for (int p = 0; p < 4; ++p) {
+    uint32_t left = (1u << kStartDeck) - 1u, mine = 0u;
+    for (int j = 0; j < kHandSize && p < n_players; ++j) {
+      const int t = deal_value(deal, kHandSize * p + j);
+      const uint32_t slot = 1u << nth_set_bit(left, t);
+      left &= ~slot;
+      mine |= slot;
+    }
+    dealt |= mine << (8 * p);
+    held[p] = L::ballot([&](int c) {
+      return c < kCards && (mine & start_slots(c)) != 0u;
+    });
+  }
+  uint32_t m0[3] = {s.sel[0], s.sel[1], s.sel[2]};
+  null_heads(m0, PLAY0, 66);
+  for (int j = 0; j < 3; ++j) m0[j] |= null_word(j);
+  L::sync();  // every lane has read rng, tainted and sel: written next
+  L::each([&](int l) {
+    if (l == 0) {
+      s.rng = rng;
+      s.tainted = tainted;
+    }
+    // card l of each live player's piles: the recycled start deck in the
+    // draw pile, less the cards dealt to the hand
+    if (l < kCards) {
+      const uint32_t slots = start_slots(l);
+      for (int p = 0; p < 4 && p < n_players; ++p) {
+        const int dealt_l = ED_POPC((dealt >> (8 * p)) & slots);
+        s.piles[p][DRAW][l] = START_DISCARD[l] - dealt_l;
+        s.piles[p][HAND][l] = dealt_l;
+        s.piles[p][ACTIVE][l] = s.piles[p][DISCARD][l] = 0;
+      }
+    }
+    // player l's mask: its cards' bits, then update_observation at the
+    // reset's phase; sel becomes agent 0's
+    if (l < 4 && l < n_players) {
+      uint32_t h = held[0];
+      for (int q = 1; q < 4; ++q) h = l == q ? held[q] : h;
+      uint32_t m[3] = {m0[0], m0[1], m0[2]};
+      put_hand_bits(m, h);
+      Ball b;
+      for (int k = 0; k < kBall; ++k) {
+        b.req[k] = req[kBall * l + k];
+        b.nr[k] = nr[kBall * l + k];
+        b.end[k] = end[kBall * l + k];
+      }
+      int mv[6], av[kShop];
+      movement_mask(b, 0, s.res, s.n_active[l], mv);
+      shop_avail(s.shop_stock, s.in_market, s.n_in_market, s.res[2], av);
+      obs_mask(m, kResetPhase, mv, av);
+      for (int j = 0; j < 3; ++j) s.storage[l][j] = m[j];
+      if (l == 0)
+        for (int j = 0; j < 3; ++j) s.sel[j] = m[j];
+    }
+  });
+}
+
+// K2's work for one env in place: the reset in the env's slot, with the
+// words RESET_READS names of column ``col`` loaded beside its first lane
+// step, then the words it writes back into the column; every other word
+// of the column keeps its value.
+template <class L>
+ED_HD void reset_column(Env& s, int* carry, int n, int col, int n_players,
+                        const int* xy, const int* req, const int* nr,
+                        const int* end) {
+  reset_env<L>(s, n_players, xy, req, nr, end,
+               [&](int l) { load_read_set(s, carry, n, col, l); });
+  L::sync();
+  L::each([&](int l) {
+    for (int f = l; f < kCarryWords; f += kLanes)
+      if (reset_writes(f, n_players))
+        carry[(size_t)f * n + col] = env_word(s, f);
+  });
+}
+
+// The reset on a whole Env in one thread (the host harnesses, e.g.
+// tests/traj_host.cpp): reset_env through the loop form of the lanes.
 ED_HD void reset_body(Env& s, int n_players, const int* xy, const int* req,
                       const int* nr, const int* end) {
-  s.agent = 0;
-  s.phase = 0;
-  for (int p = 0; p < 4; ++p)
-    if (p < n_players) player_reset(s, p);
-  for (int p = 0; p < 4; ++p) {
-    s.xy[p][0] = xy[2 * p];
-    s.xy[p][1] = xy[2 * p + 1];
-  }
-  // Shop::reset (src/cards.cpp:94-100): n_in_market untouched
-  for (int i = 0; i < kShop; ++i) {
-    s.shop_stock[i] = 3;
-    s.in_market[i] = SHOP_MKT0[i];
-  }
-  s.done = 0;
-  s.turn_counter = 0;
-  for (int p = 0; p < 4 && p < n_players; ++p) {
-    Ball b;
-    for (int k = 0; k < kBall; ++k) {
-      b.req[k] = req[kBall * p + k];
-      b.nr[k] = nr[kBall * p + k];
-      b.end[k] = end[kBall * p + k];
-    }
-    int mv[6], av[kShop];
-    movement_mask(b, 0, s.res, s.n_active[p], mv);
-    shop_avail(s.shop_stock, s.in_market, s.n_in_market, s.res[2], av);
-    obs_mask(s.storage[p], s.phase, mv, av);
-  }
-  for (int j = 0; j < 3; ++j) s.sel[j] = s.storage[s.agent][j];
-  for (int p = 0; p < 4; ++p) {
-    uint32_t w = 0;
-    for (int i = 0; i < 6; ++i) {
-      int k = kBall * p + 1 + i;
-      w |= (uint32_t)cell_type_id(req[k], nr[k], end[k]) << (5 * i);
-    }
-    s.w3[p] = w | ((uint32_t)end[kBall * p] << 30);
-  }
+  reset_env<LoopLanes>(s, n_players, xy, req, nr, end, [](int) {});
 }
 
 }  // namespace ed

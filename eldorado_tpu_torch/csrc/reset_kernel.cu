@@ -1,63 +1,147 @@
-// K2: the reset body after map generation, in place on the batch carry.
+// K2: the reset body after map generation, one warp per queued env.
 //
 // Replaces the TPU kernel eldorado_tpu/ops/step_kernel.py::make_fused_reset
-// (the Pallas program `fused_reset` -> `_reset_values` ->
+// (:420, call :533; the Pallas program `fused_reset` -> `_reset_values` ->
 // engine.reset_body): for each live player Player::reset (deck redraw from
 // the engine stream), the add_players positions, the shop reset, the
 // movement and shop masks from the pregathered (4, 19) ball rows, then
 // sel_mask and w3_cache.
 //
-// Design: one thread per queued env, laid out as K1 (step_kernel.cuh): one
-// warp per block, each env's Env in its EnvSlot of dynamic shared memory,
-// so the body's reads and writes of the env's state hit shared memory and
-// not a 2.4 KB local-memory frame per thread, and a 128-env queue spans 4
-// SMs. Thread e loads column idx[e] of the (570, n) batch carry, runs the
-// body and stores the column back in place: the indices are unique, so
-// each column has one writer, and the queue's columns are never gathered
-// into or scattered from a copy. Its inputs are K3's queue-width outputs
-// (player_xy, ball req/nr/end), so the kernel never touches a map. Without
-// idx it reads column e of a (570, q) carry and writes another.
+// What bounds it on this card: neither bytes (a 128-env queue must move
+// 0.7 MB, 0.2 us at HBM's rate) nor instructions, but each env's chain:
+// the column index, then the words read, the lane steps and the draws
+// between them, then the words written. The first design ran the chain
+// on a thread per env, one warp a block (a 128-env queue on 4 SMs); each
+// thread staged its whole 570-word column into shared memory and back, a
+// word at a time, and ran the body's 450 writes and 16 draws in sequence,
+// though the body reads only nine words of the old column: 0.060 ms per
+// 128-env queue and 0.028 at one env on an NVIDIA H100 80GB HBM3 at 700 W
+// (PERF.md).
 //
-// What bounds it: each thread's dependent chain (up to 16 engine draws and
-// the mask updates in sequence), not bytes: a 128-env queue moves about
-// 0.7 MB.
+// Design: a warp per env (engine.cuh's reset_env through the lanes of
+// lanes.cuh), so a 128-env queue is 128 warps on 128 SMs. The lanes load
+// the nine words RESET_READS names beside the first lane step (the words
+// that need neither the old column nor the draws: positions, shop,
+// counters, w3); every lane then takes one of the deals' draws by jumping
+// the engine ahead (all in sequence in the rare case a first attempt is
+// rejected) and deals the cards as bits of the start deck; the lanes
+// write the piles and masks. In place (``idx``), a warp a block, the
+// lanes store back only the words the reset writes (reset_writes): every
+// other word of the column keeps its value, and the columns are unique,
+// so each has one writer. Into a new carry (no ``idx``: vec_reset),
+// kResetEnvs envs a block write their tile out with neighbouring threads
+// on neighbouring envs (tile_plan's word units), each word from the slot
+// where the reset wrote it and otherwise from the old column. Those two
+// block shapes were the fastest of 1, 4 and 8 envs a block in place and
+// of 4, 8 and 16 into a new carry. Measured on that card: 0.0099 ms per
+// queue of 1 to 128 envs, of which 0.0020 is the launch; 0.020 ms into a
+// new 4096-env carry (0.032 before).
 #include <cuda_runtime.h>
 
-#include "step_kernel.cuh"
+#include "engine.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(ed::kStepThreads)
+// A new carry's tile of the block's V envs from e0 out: each word the
+// env's reset wrote from its slot, every other word copied through from
+// the old column in ``in``.
+template <int kEnvs>
+__device__ __forceinline__ void tile_out(const ed::EnvSlot* slots,
+                                         const int* in, int* out,
+                                         const int* np, int q, int e0,
+                                         const ed::TilePlan& p) {
+  constexpr int kThreads = ed::kLanes * kEnvs;
+  constexpr int kUnits = ed::kResetUnits;
+  const int tid = threadIdx.x;
+  for (int pass = 0; pass < p.passes; ++pass) {
+    int v[kUnits];
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k) {
+      const int u = ed::tile_unit(p, kThreads, tid, pass, k);
+      if (u >= p.units) continue;
+      int f, e;
+      ed::tile_field_env(p, u, f, e);
+      v[k] = ed::reset_writes(f, np[e]) ? ed::env_word(slots[e].env, f)
+                                        : __ldg(in + (size_t)f * q + e0 + e);
+    }
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k) {
+      const int u = ed::tile_unit(p, kThreads, tid, pass, k);
+      if (u >= p.units) continue;
+      int f, e;
+      ed::tile_field_env(p, u, f, e);
+      out[(size_t)f * q + e0 + e] = v[k];
+    }
+  }
+}
+
+// A warp per env: in place (idx) a warp a block, each warp its own
+// column; into a new carry ed::kResetEnvs envs a block and their tile.
+template <bool kInPlace>
+__global__ void __launch_bounds__(ed::kLanes
+                                  * (kInPlace ? 1 : ed::kResetEnvs))
 fused_reset_kernel(const int* carry_in, int* carry_out,
                    const int* __restrict__ idx,
                    const int* __restrict__ n_players,
                    const int* __restrict__ xy,
                    const int* __restrict__ req, const int* __restrict__ nr,
                    const int* __restrict__ end, int n, int q) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= q) return;
-  const int col = idx != nullptr ? idx[e] : e;
-  ed::Env& s = ed::env_slot();
-  ed::load_env(s, carry_in, n, col);
+  constexpr int kEnvs = kInPlace ? 1 : ed::kResetEnvs;
+  __shared__ ed::EnvSlot slots[kEnvs];
+  const int warp = threadIdx.x / ed::kLanes;
+  const int e = blockIdx.x * kEnvs + warp;
   const size_t b = (size_t)e * 4 * ed::kBall;
-  ed::reset_body(s, n_players[col], xy + 8 * (size_t)e, req + b, nr + b,
-                 end + b);
-  ed::store_env(s, carry_out, n, col);
+  ed::Env& s = slots[warp].env;
+  if constexpr (kInPlace) {
+    if (e >= q) return;
+    const int col = idx[e];
+    ed::reset_column<ed::WarpLanes>(s, carry_out, n, col, n_players[col],
+                                    xy + 8 * (size_t)e, req + b, nr + b,
+                                    end + b);
+  } else {
+    __shared__ int np[kEnvs];
+    if (e < q) {
+      const int np_e = n_players[e];
+      np[warp] = np_e;
+      ed::reset_env<ed::WarpLanes>(
+          s, np_e, xy + 8 * (size_t)e, req + b, nr + b, end + b,
+          [&](int l) { ed::load_read_set(s, carry_in, q, e, l); });
+    }
+    __syncthreads();
+    const int e0 = blockIdx.x * kEnvs, V = min(kEnvs, q - e0);
+    constexpr int kThreads = ed::kLanes * kEnvs;
+    if (V == kEnvs)  // a full tile: the plan folds at compile time
+      tile_out<kEnvs>(slots, carry_in, carry_out, np, q, e0,
+                      ed::tile_plan(kEnvs, 1, kThreads, ed::kResetUnits));
+    else
+      tile_out<kEnvs>(slots, carry_in, carry_out, np, q, e0,
+                      ed::tile_plan(V, 1, kThreads, ed::kResetUnits));
+  }
 }
 
 }  // namespace
 
 // carry_in / carry_out: (570, n), the same tensor for the in-place form;
-// idx (q,) unique columns, or null (then n == q); n_players (n,) read at
-// the column; player_xy (q, 4, 2) and req / nr / end (q, 4, 19) at e.
+// idx (q,) unique columns, or null (then n == q and carry_out is a new
+// tensor); n_players (n,) read at the column; player_xy (q, 4, 2) and
+// req / nr / end (q, 4, 19) at e.
 extern "C" int ed_fused_reset(const void* carry_in, void* carry_out,
                               const void* idx, const void* n_players,
                               const void* player_xy, const void* req,
                               const void* nr, const void* end, int n, int q,
                               void* stream) {
   if (q <= 0) return 0;
-  return ed::launch_slotted<fused_reset_kernel>(
-      q, (cudaStream_t)stream, (const int*)carry_in, (int*)carry_out,
-      (const int*)idx, (const int*)n_players, (const int*)player_xy,
-      (const int*)req, (const int*)nr, (const int*)end, n, q);
+  cudaStream_t s = (cudaStream_t)stream;
+  const int *in = (const int*)carry_in, *ix = (const int*)idx,
+            *np = (const int*)n_players, *pxy = (const int*)player_xy,
+            *rq = (const int*)req, *rn = (const int*)nr, *re = (const int*)end;
+  int* out = (int*)carry_out;
+  if (idx != nullptr)
+    fused_reset_kernel<true>
+        <<<q, ed::kLanes, 0, s>>>(in, out, ix, np, pxy, rq, rn, re, n, q);
+  else
+    fused_reset_kernel<false><<<(q + ed::kResetEnvs - 1) / ed::kResetEnvs,
+                                ed::kLanes * ed::kResetEnvs, 0, s>>>(
+        in, out, ix, np, pxy, rq, rn, re, n, q);
+  return (int)cudaGetLastError();
 }

@@ -29,6 +29,25 @@ ED_HD uint32_t next_u31(uint32_t x) {
   return y >= kM ? y - kM : y;
 }
 
+// The engine's multiplier to the powers 0-16 mod 2^31 - 1 (ED_TABLE: the
+// lanes of a warp read it at different k); tests/test_torch_engine_host.py
+// holds it to pow(16807, k, 2^31 - 1).
+constexpr int kMinstdPows = 17;
+ED_TABLE uint32_t MINSTD_POW[kMinstdPows] = {
+    1u,          16807u,      282475249u,  1622650073u, 984943658u,
+    1144108930u, 470211272u,  101027544u,  1457850878u, 1458777923u,
+    2007237709u, 823564440u,  1115438165u, 1784484492u, 74243042u,
+    114807987u,  1137522503u};
+
+// The engine k steps on from x (k < kMinstdPows): a^k x mod 2^31 - 1, the
+// 62-bit product folded twice.
+ED_HD uint32_t minstd_skip(uint32_t x, int k) {
+  uint64_t p = (uint64_t)x * MINSTD_POW[k];
+  p = (p & kM) + (p >> 31);
+  p = (p & kM) + (p >> 31);
+  return (uint32_t)(p >= kM ? p - kM : p);
+}
+
 // uniform_int_distribution(0, n-1) exactly (rng.uniform_int): redraw until
 // the value is accepted. Map generation draws this way. n >= 1.
 ED_HD uint32_t uniform_int(uint32_t& x, uint32_t n) {

@@ -99,10 +99,13 @@ extern "C" int ed_sample_carry(const void* srng_in, void* srng_out,
   return (int)cudaGetLastError();
 }
 
-// An empty kernel launched as K1-sample is, for n envs: the launch floor
-// that K1-sample's time is read against.
-extern "C" int ed_empty(int n, void* stream) {
-  empty_kernel<<<blocks(n < 1 ? 1 : n), kSampleThreads, 0,
+// An empty kernel of n threads in blocks of ``threads``: the launch floor
+// a kernel's time is read against (K1-sample's grid at threads == 32; K2's,
+// a warp per env, in place at 32 and into a new carry at 32 *
+// ed::kResetEnvs).
+extern "C" int ed_empty(int n, int threads, void* stream) {
+  if (n < 1) n = 1;
+  empty_kernel<<<(n + threads - 1) / threads, threads, 0,
                  (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

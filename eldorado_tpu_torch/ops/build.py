@@ -29,7 +29,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("step_kernel.cu", "step_compact.cu", "step_full.cu",
            "step_traj.cu", "step_actions.cu", "sample.cu", "reset_kernel.cu",
            "mapgen.cu", "probes.cu")
-HEADERS = ("rng.cuh", "engine.cuh", "step_kernel.cuh", "mapgen.cuh")
+HEADERS = ("rng.cuh", "lanes.cuh", "engine.cuh", "step_kernel.cuh",
+           "mapgen.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler",
                  "-fPIC", "-Xptxas=-v")
@@ -51,8 +52,8 @@ _ENTRIES = {
     "ed_sample": [_P] * 6 + [_I] + [_P],
     # srng_in, srng_out, carry, live, actions, n, mask_sel, stream
     "ed_sample_carry": [_P] * 5 + [_I] * 2 + [_P],
-    # n, stream
-    "ed_empty": [_I, _P],
+    # n, threads per block, stream
+    "ed_empty": [_I, _I, _P],
     # carry_in, carry_out, idx, n_players, player_xy, req, nr, end, n, q,
     # stream
     "ed_fused_reset": [_P] * 8 + [_I] * 2 + [_P],

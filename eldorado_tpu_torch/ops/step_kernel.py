@@ -247,6 +247,10 @@ def step_actions_plain(carry, actions, map_ids, min_xy, n_players,
 # K1-act's block (csrc/engine.cuh kActEnvs, kActWarps, kActUnits): envs
 # and warps a block, 16-byte units a staging thread loads in its pass
 ACT_ENVS, ACT_WARPS, ACT_UNITS = 16, 8, 9
+# K2's block into a new carry (csrc/engine.cuh kResetEnvs, kResetUnits):
+# envs a block, a warp each; words each thread writes out a pass. In place
+# K2 runs a warp a block.
+RESET_ENVS, RESET_UNITS = 16, 6
 
 
 def step_actions(carry, actions, map_ids, min_xy, n_players, max_steps):
@@ -400,12 +404,16 @@ def sample_carry(srng, carry, mask_src: str = "storage", live=None):
     return act, srng_out
 
 
-def launch_empty(n: int, device) -> None:
-    """An empty kernel launched as K1-sample is for ``n`` envs (csrc/
-    sample.cu ``ed_empty``): the launch floor beside K1-sample's time."""
+def launch_empty(n: int, device, threads: int = 32) -> None:
+    """An empty kernel of ``n`` threads in blocks of ``threads`` (csrc/
+    sample.cu ``ed_empty``): a launch floor. K1-sample's grid for ``n``
+    envs is the default; K2's for q envs in place is ``launch_empty(32 *
+    q, device)``, into a new carry ``launch_empty(32 * q, device, 32 *
+    RESET_ENVS)``."""
     with torch.cuda.device(device):
         build.check(build.load().ed_empty(
-            n, torch.cuda.current_stream(device).cuda_stream), "empty")
+            n, threads, torch.cuda.current_stream(device).cuda_stream),
+            "empty")
 
 
 # ------------------------------------------------------------------- K2
@@ -423,9 +431,10 @@ def fused_reset_plain(carry, n_players, player_xy, req, nr, end, idx=None):
 
 
 def fused_reset(carry, n_players, player_xy, req, nr, end, idx=None):
-    """K2: the reset body after map generation (csrc/reset_kernel.cu) for
-    q envs: the add_players positions ``player_xy`` (q, 4, 2) and the
-    pregathered ball rows ``req``/``nr``/``end`` (q, 4, 19), all int32.
+    """K2: the reset body after map generation (csrc/reset_kernel.cu, a
+    warp per env) for q envs: the add_players
+    positions ``player_xy`` (q, 4, 2) and the pregathered ball rows
+    ``req``/``nr``/``end`` (q, 4, 19), all int32.
 
     Without ``idx``, ``carry`` (W, q) and ``n_players`` (q,) are the q
     envs', and a new carry is returned. With ``idx`` ((q,) int32, unique

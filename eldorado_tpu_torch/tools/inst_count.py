@@ -51,9 +51,10 @@ PTX_FLAGS = ("-arch=compute_90a", "-std=c++17", "-O3", "--fmad=false",
 K1_SOURCE = {0: "step_kernel.cu", 5: "step_compact.cu", 40: "step_full.cu",
              11: "step_traj.cu"}
 K1_ENTRY = "fused_step_kernelILb{null}ELi{rec}E"
-# K3's work counted one thread per env (not part of the library)
+# K3's and K2's work counted one thread per env (not part of the library)
 K3_WORK_SOURCE = "mapgen_work.cu"
-PTX_SOURCES = build.SOURCES + (K3_WORK_SOURCE,)
+K2_WORK_SOURCE = "reset_work.cu"
+PTX_SOURCES = build.SOURCES + (K3_WORK_SOURCE, K2_WORK_SOURCE)
 _LABEL = re.compile(r"^\$?[\w$]+:$")
 
 
@@ -349,17 +350,30 @@ def count_k1_sample_carry(srng, carry, mask_src="storage",
 
 
 def count_k2(carry, n_players, player_xy, req, nr, end, idx=None) -> dict:
-    """Instructions K2's threads execute, by kind, for ``fused_reset`` on
-    these arguments (csrc/reset_kernel.cu, launched like K1: one warp per
-    block, each env in shared memory), run on a copy of ``carry``."""
+    """Instructions K2's warps execute, by kind, summed over their lanes,
+    for ``fused_reset`` on these arguments (csrc/reset_kernel.cu: a warp
+    per env; in place a warp a block, into a new carry `RESET_ENVS` envs
+    a block), run on a copy of ``carry``."""
     from ..ops import step_kernel as K
     q = player_xy.shape[0]
-    shape = K.fused_step_shape(q)
+    envs = 1 if idx is not None else K.RESET_ENVS
     out = carry.clone()
-    return counter("reset_kernel.cu", "fused_reset_kernel")(
-        shape["blocks"], shape["threads"], shape["smem_bytes"],
+    pattern = f"fused_reset_kernelILb{int(idx is not None)}E"
+    return counter("reset_kernel.cu", pattern)(
+        -(-q // envs), 32 * envs, 0,
         [carry if idx is None else out, out, idx, n_players, player_xy, req,
          nr, end, carry.shape[1], q])
+
+
+def count_k2_work(carry, n_players, player_xy, req, nr, end, idx) -> dict:
+    """The instructions of K2's work in place on the same inputs, by kind:
+    the same per-env code run one thread per env through the lane shim's
+    loop form (csrc/reset_work.cu), on a copy of ``carry``."""
+    q = player_xy.shape[0]
+    return counter(K2_WORK_SOURCE, "fused_reset_work_kernel")(
+        (q + 31) // 32, 32, 0,
+        [carry.clone(), idx, n_players, player_xy, req, nr, end,
+         carry.shape[1], q])
 
 
 def _k3_args(rng, n_pieces, difficulty, n_players, idx) -> list:

@@ -7,7 +7,11 @@
 // ed::step_given) and of K1-sample (csrc/sample.cu: ed::sample_action);
 // the sampler's SMALL_RANGE table and nth_set_bit (rng.cuh, engine.cuh);
 // and K1-act's block staging plan (ed::tile_plan and its kin), looped as
-// the kernel loops it.
+// the kernel loops it. K2's per-env work (csrc/reset_kernel.cu: in place
+// ed::reset_column, into a new carry ed::reset_env, then the column out)
+// through the lane shim's loop form,
+// each env's slot filled with noise first, as shared memory holds
+// whatever it held; its read and write sets; its new-carry tile plan.
 #include <stdint.h>
 
 #include <vector>
@@ -128,6 +132,11 @@ extern "C" void ed_host_small_range(int n, uint32_t* out) {
   out[3] = (uint32_t)row.shift;
 }
 
+// out[k] = minstd_skip(x, k) for k < kMinstdPows.
+extern "C" void ed_host_minstd_skip(uint32_t x, uint32_t* out) {
+  for (int k = 0; k < ed::kMinstdPows; ++k) out[k] = ed::minstd_skip(x, k);
+}
+
 // q[i] = r[i] / SMALL_RANGE[n].scaling by the row's reciprocal.
 extern "C" void ed_host_small_quotient(int n, const uint32_t* r, uint32_t* q,
                                        int count) {
@@ -141,19 +150,18 @@ extern "C" void ed_host_nth_set_bit(const uint32_t* f, const int* pos,
   for (int i = 0; i < count; ++i) out[i] = ed::nth_set_bit(f[i], pos[i]);
 }
 
-// K1-act's staging over an n-env carry in blocks of ed::kActEnvs envs
-// and ed::kActWarps warps, as the kernel runs it; ``vec_ok``: the carries
-// are 16-byte aligned. Adds 1 to staged[f * n + e] for every (field, env)
-// a unit moves in (the way out is the same plan).
-extern "C" void ed_host_tile_cover(int n, int vec_ok, int* staged) {
-  const int G = ed::kActEnvs, threads = 32 * ed::kActWarps;
-  const bool vec = vec_ok && n % 4 == 0;
+namespace {
+
+// A block staging plan over an n-env carry in blocks of G envs and
+// ``threads`` threads taking ``units`` units a pass, as the kernels loop
+// it: adds 1 to staged[f * n + e] for every (field, env) a unit moves.
+void tile_cover(int n, int G, int threads, int units, bool vec,
+                int* staged) {
   for (int e0 = 0; e0 < n; e0 += G) {
     const int V = G < n - e0 ? G : n - e0;
-    const ed::TilePlan p = ed::tile_plan(V, vec ? 4 : 1, threads,
-                                         ed::kActUnits);
+    const ed::TilePlan p = ed::tile_plan(V, vec ? 4 : 1, threads, units);
     for (int pass = 0; pass < p.passes; ++pass)
-      for (int k = 0; k < ed::kActUnits; ++k)
+      for (int k = 0; k < units; ++k)
         for (int tid = 0; tid < threads; ++tid) {
           const int u = ed::tile_unit(p, threads, tid, pass, k);
           if (u >= p.units) continue;
@@ -162,4 +170,74 @@ extern "C" void ed_host_tile_cover(int n, int vec_ok, int* staged) {
           for (int j = 0; j < p.width; ++j) ++staged[f * n + e0 + e + j];
         }
   }
+}
+
+// noise in every word of a slot (a 32-bit LCG from ``seed``)
+void fill_slot(ed::EnvSlot& slot, uint32_t& seed) {
+  for (int f = 0; f < ed::kCarryWords; ++f) {
+    seed = seed * 1664525u + 1013904223u;
+    ed::set_env_word(slot.env, f, (int)seed);
+  }
+}
+
+}  // namespace
+
+// K1-act's staging over an n-env carry in blocks of ed::kActEnvs envs
+// and ed::kActWarps warps, as the kernel runs it; ``vec_ok``: the carries
+// are 16-byte aligned (the way out is the same plan).
+extern "C" void ed_host_tile_cover(int n, int vec_ok, int* staged) {
+  tile_cover(n, ed::kActEnvs, 32 * ed::kActWarps, ed::kActUnits,
+             vec_ok && n % 4 == 0, staged);
+}
+
+// K2's new-carry tile out in blocks of ed::kResetEnvs envs, a warp each,
+// by words.
+extern "C" void ed_host_reset_tile_cover(int n, int* staged) {
+  tile_cover(n, ed::kResetEnvs, ed::kLanes * ed::kResetEnvs,
+             ed::kResetUnits, false, staged);
+}
+
+// The arguments of ed_fused_reset (csrc/reset_kernel.cu) without the
+// stream, then ``seed``, the noise each env's slot holds before the reset.
+// With idx (in place, carry_in == carry_out): ed::reset_column. Without:
+// ed::reset_env with the words RESET_READS names of column e loaded, then
+// the column out, each word the reset writes from the slot and every
+// other copied through from carry_in.
+extern "C" void ed_host_fused_reset(const int* carry_in, int* carry_out,
+                                    const int* idx, const int* n_players,
+                                    const int* xy, const int* req,
+                                    const int* nr, const int* end, int n,
+                                    int q, uint32_t seed) {
+  ed::EnvSlot slot;
+  for (int e = 0; e < q; ++e) {
+    fill_slot(slot, seed);
+    ed::Env& s = slot.env;
+    const size_t b = (size_t)e * 4 * ed::kBall;
+    if (idx != nullptr) {
+      const int col = idx[e];
+      ed::reset_column<ed::LoopLanes>(s, carry_out, n, col, n_players[col],
+                                      xy + 8 * e, req + b, nr + b, end + b);
+      continue;
+    }
+    const int np = n_players[e];
+    ed::reset_env<ed::LoopLanes>(
+        s, np, xy + 8 * e, req + b, nr + b, end + b,
+        [&](int l) { ed::load_read_set(s, carry_in, q, e, l); });
+    for (int f = 0; f < ed::kCarryWords; ++f)
+      carry_out[(size_t)f * q + e] = ed::reset_writes(f, np)
+                                         ? ed::env_word(s, f)
+                                         : carry_in[(size_t)f * q + e];
+  }
+}
+
+// K2's word sets: reads[f] = 1 where RESET_READS names word f;
+// writes[(np - 1) * 570 + f] = reset_writes(f, np) for np = 1-4.
+extern "C" void ed_host_reset_sets(unsigned char* reads,
+                                   unsigned char* writes) {
+  for (int f = 0; f < ed::kCarryWords; ++f) {
+    reads[f] = 0;
+    for (int np = 1; np <= 4; ++np)
+      writes[(np - 1) * ed::kCarryWords + f] = ed::reset_writes(f, np);
+  }
+  for (int i = 0; i < ed::kResetReads; ++i) reads[ed::RESET_READS[i]] = 1;
 }

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions on the card: K1 (with and
 without the learner feed's records, and with the trajectory record), K2
-(new columns and in place), K3 (map generation and its prelude, in every
-launch shape), the learner's step and sampler (K1-act at widths that
+(new columns and in place, at widths 1 to 4097 on unsorted columns), K3
+(map generation and its prelude, in every launch shape), the learner's
+step and sampler (K1-act at widths that
 take each staging path, K1-sample from mask words and from the carry) and
 K1's cost probes (K1-null, P1 null copy, P2 op chain, P3
 step prefix); the rollout, the feed, VecEnv and rollout / kernel_rollout,
@@ -166,6 +167,45 @@ def test_fused_reset_in_place_equals_plain(dev):
     got = carry.clone()
     out = K.fused_reset(got, s.n_players, xy, req, nr, end, idx=idx)
     assert out is got and torch.equal(got, want)
+
+
+@pytest.fixture
+def k2_batch(dev):
+    """A 4100-env mid-game batch of mixed parameters (1-4 players, 1-16
+    pieces, difficulties 0-2; maps that failed kept), 40 steps after its
+    reset."""
+    seeds, players, pieces, diffs = MG.mixed_batch(4100)
+    s = et.vec_reset_varied(seeds, players, pieces, diffs, 100,
+                            check_maps=False, device=dev)
+    carry, _, _ = K.fused_step(TE.pack_dyn(TE.split_state(s)[1]),
+                               et.sampler_init(5, 4100, device=dev),
+                               s.map_ids, s.min_xy, s.n_players, s.max_steps,
+                               40)
+    return carry, s
+
+
+@pytest.mark.parametrize("q", [1, 31, 33, 4097])
+def test_fused_reset_widths_equal_plain(dev, k2_batch, q):
+    """K2 at q envs, a warp each: in place on q unsorted columns of the
+    batch (the kernel must not depend on their order) == gather,
+    fused_reset_plain, scatter, every other column untouched; and into a
+    new carry from those columns == fused_reset_plain."""
+    carry, s = k2_batch
+    cols = torch.randperm(4100, generator=torch.Generator().manual_seed(q))[
+        :q].to(dev)
+    idx = cols.to(torch.int32)
+    assert q == 1 or not bool((cols[1:] > cols[:-1]).all())
+    _, xy, ball = TE.reset_map_prelude(carry[0][cols], s.n_pieces[cols],
+                                       s.difficulty[cols], s.n_players[cols])
+    got = K.fused_reset(carry.clone(), s.n_players, xy, *ball, idx=idx)
+    want = K.fused_reset_plain(carry.clone(), s.n_players, xy, *ball,
+                               idx=idx)
+    assert torch.equal(got, want)
+    keep = torch.ones(4100, dtype=torch.bool, device=dev)
+    keep[cols] = False
+    assert torch.equal(got[:, keep], carry[:, keep])
+    new = (carry[:, cols].contiguous(), s.n_players[cols], xy, *ball)
+    assert torch.equal(K.fused_reset(*new), K.fused_reset_plain(*new))
 
 
 def _k3_equals_plain(rng, n_pieces, difficulty, n_players):

@@ -22,8 +22,15 @@ on seeded width-22 masks and every position. K1-act's block staging
 plan, looped as its kernel loops it, at n = 1, 3, 31, 4096, 4097 and
 4100 (a last block of 4 envs by 16-byte units):
 every (field, env) staged exactly once; its block's constants in
-engine.cuh against `step_kernel.ACT_ENVS` and kin. Skips only where g++
-is missing.
+engine.cuh against `step_kernel.ACT_ENVS` and kin. K2's per-env work
+(``ed::reset_env`` through the lane shim's loop form, each slot holding
+noise before it is staged) against `fused_reset_plain` on the mid-game
+carry with the players of `mapgen.mixed_batch` and seeded ball rows of
+every cell type, into a new carry and in place on an unsorted queue; with every word outside its
+read set replaced by noise, the words it writes equal the clean run's and
+no other word changes; its write set's size and its staging plan; its
+block's constants against `step_kernel.RESET_ENVS` and kin. Skips only
+where g++ is missing.
 """
 import ctypes
 import re
@@ -37,7 +44,9 @@ import torch
 
 import eldorado_tpu_torch as et
 from eldorado_tpu_torch import stream as S
+from eldorado_tpu_torch.core import cells as C
 from eldorado_tpu_torch.core import engine as E
+from eldorado_tpu_torch.core import mapgen as MG
 from eldorado_tpu_torch.ops import build
 from eldorado_tpu_torch.ops import step_kernel as K
 
@@ -68,6 +77,11 @@ def host_lib(tmp_path_factory):
         + [ctypes.c_void_p] * 2 + [ctypes.c_int]
     lib.ed_host_nth_set_bit.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.ed_host_tile_cover.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.ed_host_reset_tile_cover.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.ed_host_fused_reset.argtypes = [ctypes.c_void_p] * 8 \
+        + [ctypes.c_int] * 2 + [ctypes.c_uint32]
+    lib.ed_host_reset_sets.argtypes = [ctypes.c_void_p] * 2
+    lib.ed_host_minstd_skip.argtypes = [ctypes.c_uint32, ctypes.c_void_p]
     return lib
 
 
@@ -291,3 +305,180 @@ def test_tile_plan_covers_every_word_once(host_lib, n):
         staged = np.zeros(E.CARRY_WORDS * n, np.int32)
         host_lib.ed_host_tile_cover(n, vec_ok, staged.ctypes.data)
         assert np.array_equal(staged, np.ones_like(staged)), vec_ok
+
+
+# ------------------------------------------------------------------- K2
+@pytest.fixture(scope="module")
+def reset_inputs(start):
+    """The 64 mid-game columns of `start` as the old carry, with the
+    players (1-4) of `mapgen.mixed_batch(64)` (its pieces and
+    difficulties do not enter the reset body), seeded add_players
+    positions and ball rows of every cell type (seeded ids decoded to
+    req / nr / end); an unsorted queue of 23 columns."""
+    carry = start[0]
+    _, players, _, _ = MG.mixed_batch(N)
+    gen = np.random.default_rng(8)
+    ids = torch.as_tensor(gen.integers(0, C.N_CELL_TYPES, (N, 4, E.N_BALL)),
+                          dtype=torch.int32)
+    xy = torch.as_tensor(gen.integers(-48, 48, (N, 4, 2)),
+                         dtype=torch.int32)
+    idx = torch.as_tensor(gen.permutation(N)[:23], dtype=torch.int32)
+    return (carry, torch.as_tensor(players, dtype=torch.int32), xy,
+            C.decode_cells(ids), idx)
+
+
+def host_reset(lib, carry, n_players, xy, ball, idx=None, seed=1):
+    """ed_host_fused_reset as `fused_reset` calls ed_fused_reset: a new
+    carry, or (idx) the queue's columns of a copy of ``carry`` in place."""
+    q = xy.shape[0]
+    out = torch.empty_like(carry) if idx is None else carry.clone()
+    lib.ed_host_fused_reset(carry.data_ptr() if idx is None
+                            else out.data_ptr(), out.data_ptr(),
+                            None if idx is None else idx.data_ptr(),
+                            n_players.data_ptr(), xy.data_ptr(),
+                            *(t.data_ptr() for t in ball), carry.shape[1],
+                            q, seed)
+    return out
+
+
+def reset_sets(lib):
+    """(reads (570,), writes (4, 570): row np - 1 for np players), bool."""
+    reads = np.zeros(E.CARRY_WORDS, np.uint8)
+    writes = np.zeros((4, E.CARRY_WORDS), np.uint8)
+    lib.ed_host_reset_sets(reads.ctypes.data, writes.ctypes.data)
+    return torch.as_tensor(reads > 0), torch.as_tensor(writes > 0)
+
+
+@pytest.mark.parametrize("queue", [False, True])
+def test_reset_host_equals_plain(host_lib, reset_inputs, queue):
+    """K2's lane form equals `fused_reset_plain` on every word: into a new
+    carry, and in place on the unsorted queue (every other column as it
+    was); each env's slot held noise before it was staged."""
+    carry, n_players, xy, ball, idx = reset_inputs
+    if queue:
+        rows = idx.long()
+        q_xy, q_ball = xy[rows], tuple(b[rows] for b in ball)
+        got = host_reset(host_lib, carry, n_players, q_xy, q_ball, idx)
+        want = K.fused_reset_plain(carry.clone(), n_players, q_xy, *q_ball,
+                                   idx=idx)
+        keep = torch.ones(N, dtype=torch.bool)
+        keep[rows] = False
+        assert torch.equal(got[:, keep], carry[:, keep])
+    else:
+        got = host_reset(host_lib, carry, n_players, xy, ball)
+        want = K.fused_reset_plain(carry, n_players, xy, *ball)
+    assert torch.equal(got, want)
+    assert set(n_players.tolist()) == {1, 2, 3, 4}
+
+
+@pytest.mark.parametrize("queue", [False, True])
+def test_reset_host_read_set_poison(host_lib, reset_inputs, queue):
+    """The read set pinned: with every word outside RESET_READS replaced
+    by noise, every word K2 writes equals the clean plain run's, and every
+    word it does not write keeps its (noisy) value; the plain run changes
+    no word outside the write set."""
+    carry, n_players, xy, ball, idx = reset_inputs
+    reads, writes = reset_sets(host_lib)
+    gen = np.random.default_rng(9)
+    noise = torch.as_tensor(gen.integers(-2 ** 31, 2 ** 31, carry.shape),
+                            dtype=torch.int32)
+    noisy = torch.where(reads[:, None], carry, noise)
+    cols = idx.long() if queue else torch.arange(N)
+    w = writes[n_players[cols].long() - 1].T     # (570, q) for the columns
+    if queue:
+        q_xy, q_ball = xy[cols], tuple(b[cols] for b in ball)
+        got = host_reset(host_lib, noisy, n_players, q_xy, q_ball, idx,
+                         seed=5)
+        want = K.fused_reset_plain(carry.clone(), n_players, q_xy, *q_ball,
+                                   idx=idx)
+        keep = torch.ones(N, dtype=torch.bool)
+        keep[cols] = False
+        assert torch.equal(got[:, keep], noisy[:, keep])
+    else:
+        got = host_reset(host_lib, noisy, n_players, xy, ball, seed=5)
+        want = K.fused_reset_plain(carry, n_players, xy, *ball)
+    got, want, old = got[:, cols], want[:, cols], carry[:, cols]
+    assert torch.equal(got[w], want[w])
+    assert torch.equal(got[~w], noisy[:, cols][~w])
+    assert torch.equal(want[~w], old[~w])
+    assert bool((noisy[:, cols][~w] != old[~w]).any())
+
+
+MINSTD_M, MINSTD_A = 2 ** 31 - 1, 16807
+
+
+def test_minstd_skip_equals_pow(host_lib):
+    """rng.cuh's jump-ahead (the deals' draws): minstd_skip(x, k) ==
+    16807^k x mod 2^31 - 1 for k = 0-16 on the engine's extremes and 200
+    seeded states."""
+    gen = np.random.default_rng(10)
+    out = np.zeros(17, np.uint32)
+    for x in [1, 2, MINSTD_M - 1, *gen.integers(1, MINSTD_M, 200)]:
+        host_lib.ed_host_minstd_skip(int(x), out.ctypes.data)
+        assert out.tolist() == [pow(MINSTD_A, k, MINSTD_M) * int(x) % MINSTD_M
+                                for k in range(17)], x
+
+
+@pytest.mark.parametrize("queue", [False, True])
+def test_reset_host_rejected_draws_equal_plain(host_lib, reset_inputs,
+                                               queue):
+    """A deal's draw whose first attempt is rejected (about 4 in 10^9
+    draws): column c's engine is set so that its draw c % 16 (of the
+    deals' 4 * n_players) rejects, which the lanes' jump-ahead cannot
+    take; K2's lane form then runs the draws in sequence and equals
+    `fused_reset_plain` on every word."""
+    carry, n_players, xy, ball, idx = reset_inputs
+    carry = carry.clone()
+    inv = pow(MINSTD_A, MINSTD_M - 2, MINSTD_M)
+    urng = MINSTD_M - 2                      # uniform_int's range
+    forced = 0
+    for c in range(N):
+        j = c % (4 * int(n_players[c]))
+        n = 8 - j % 4
+        past = n * (urng // n)
+        first = min(past + 1 + c % 2, MINSTD_M - 1)   # r = first - 1
+        x = first * pow(inv, j + 1, MINSTD_M) % MINSTD_M
+        carry[_OFF["rng"], c] = x - (1 << 32) if x >= 1 << 31 else x
+        forced += 1
+    if queue:
+        rows = idx.long()
+        q_xy, q_ball = xy[rows], tuple(b[rows] for b in ball)
+        got = host_reset(host_lib, carry, n_players, q_xy, q_ball, idx)
+        want = K.fused_reset_plain(carry.clone(), n_players, q_xy, *q_ball,
+                                   idx=idx)
+    else:
+        got = host_reset(host_lib, carry, n_players, xy, ball)
+        want = K.fused_reset_plain(carry, n_players, xy, *ball)
+    assert forced == N and torch.equal(got, want)
+
+
+def test_reset_sets(host_lib):
+    """K2's sets: the nine words of RESET_READS; 57 words written in every
+    env and 98 more for each player, none of them a played pile."""
+    reads, writes = reset_sets(host_lib)
+    want = {_OFF["rng"], _OFF["rng_tainted"], _OFF["n_in_market"],
+            *range(_OFF["sel_mask"], _OFF["sel_mask"] + 3),
+            *range(_OFF["resources"], _OFF["resources"] + 3)}
+    assert set(np.flatnonzero(reads.numpy())) == want
+    assert writes.sum(1).tolist() == [57 + 98 * p for p in range(1, 5)]
+    played = E.PILE_PLAYED * E.N_CARDTYPES
+    for p in range(4):
+        base = _OFF["piles"] + p * 5 * E.N_CARDTYPES + played
+        assert not bool(writes[:, base:base + E.N_CARDTYPES].any())
+
+
+@pytest.mark.parametrize("n", [1, 3, 31, 4096, 4097])
+def test_reset_tile_plan_covers_every_word_once(host_lib, n):
+    """K2's new-carry staging plan moves each (field, env) exactly once."""
+    staged = np.zeros(E.CARRY_WORDS * n, np.int32)
+    host_lib.ed_host_reset_tile_cover(n, staged.ctypes.data)
+    assert np.array_equal(staged, np.ones_like(staged))
+
+
+def test_reset_block_constants_match_header():
+    """engine.cuh's kResetEnvs and kResetUnits (K2's block) are
+    step_kernel's RESET_ENVS and RESET_UNITS."""
+    text = (build.CSRC / "engine.cuh").read_text()
+    got = [int(re.search(rf"constexpr int kReset{k} = (\d+);", text)[1])
+           for k in ("Envs", "Units")]
+    assert got == [K.RESET_ENVS, K.RESET_UNITS]
