@@ -41,8 +41,9 @@ before the final line:
    launch shape and its ms per 128-env queue and at 4096 envs in every
    launch shape (both places of the pair table); K2 in place on queues of
    1, 8 and 128 envs of the mid-game carry and into a new carry at 4096
-   envs, each beside an empty kernel on its grid (its launch floor), and
-   the bytes its design moves beside those its bound counts;
+   envs, each beside an empty kernel on its grid (its launch floor); its
+   bound on the bytes an in-place reset moves, and its ratio to the bound
+   of each column in and out that earlier records used;
 6. K1's cost probes on the carry phase 5 leaves: K1-null, P1 (null
    copy), P2 (op chain,
    nine shapes, both ops, k=4096) and P3 (step prefix, cuts 0-3 over 8
@@ -144,8 +145,9 @@ phase 5 sets K1's static SASS count beside its PTX count); K3's and K2's
 are their work, the same per-env code run one thread per env
 (count_k3_work, count_k2_work), not the copies of the scalar chain in the
 other lanes of each warp, whose sums phase 5 prints beside them; K2's
-bytes are each column in and out, as its first design moved them, and
-phase 5 prints the bytes its design moves beside them; P1 does no
+bytes are those an in-place reset must move (the words it reads and
+writes, and its inputs), and phase 5 prints beside its ratio the one to
+each column in and out, the bytes its first design moved; P1 does no
 arithmetic; P2's are its k ops per
 element. P1 and K1-null are timed
 with the L2 evicted before each launch, so that their bytes come from
@@ -773,17 +775,19 @@ def main():
           f"{sum(sass.values())} / {sum(ptx.values())} = "
           f"{sum(sass.values()) / sum(ptx.values()):.3f}; " + ", ".join(
               f"{k} {sass[k]} / {ptx[k]}" for k in IC.KINDS))
-    # K2 reads and writes each column once, its idx, n_players and K3's
-    # queue outputs; K3 reads idx, the engine word and three parameters
-    # per env and the pair table, and writes the map row, min_xy, the
-    # two flags and the queue outputs
+    # K2 in place reads the nine words of each queued column it reads and
+    # writes the words it writes, and reads its idx, n_players and K3's
+    # queue outputs (k2_moved_bytes); K3 reads idx, the engine word and
+    # three parameters per env and the pair table, and writes the map
+    # row, min_xy, the two flags and the queue outputs
     queue_out = 8 * 4 + 3 * 4 * E.N_BALL * 4
     ops_k2 = IC.count_k2_work(stepped, *q_args, idx=idx)
     ops_k2_warp = IC.count_k2(stepped, *q_args, idx=idx)
-    bound_k2, by_k2 = bound(Q * (2 * E.CARRY_WORDS * 4 + 8 + queue_out),
-                            ops_k2)
     moved_k2 = k2_moved_bytes(q_states.n_players[idx.long()],
                               in_place=True)
+    bound_k2, by_k2 = bound(moved_k2, ops_k2)
+    # the bytes bound of PR 6-11's records: each column in and out
+    columns_k2 = Q * (2 * E.CARRY_WORDS * 4 + 8 + queue_out)
     ops_k3 = IC.count_k3_work(*q_in)
     ops_k3_warp = IC.count_k3(*q_in)
     bound_k3, by_k3 = bound(
@@ -793,16 +797,16 @@ def main():
           f"({by_k2}; its work {sum(ops_k2.values()) / Q:.0f} PTX "
           f"instructions per env, one thread per env: {per_kind(ops_k2, Q)};"
           f" K2's warps execute {sum(ops_k2_warp.values()) / Q:.0f} per env "
-          f"over their 32 lanes: {per_kind(ops_k2_warp, Q)}): K2 takes "
-          f"{ms_k2 / bound_k2:.1f}x "
-          f"its bound; the design moves {moved_k2} bytes of the bound's "
-          f"{Q * (2 * E.CARRY_WORDS * 4 + 8 + queue_out)}")
+          f"over their 32 lanes: {per_kind(ops_k2_warp, Q)}; {moved_k2} "
+          f"bytes): K2 takes {ms_k2 / bound_k2:.1f}x its bound; against "
+          f"the bound of each column in and out, {columns_k2} bytes, "
+          f"{bound(columns_k2, ops_k2)[0]:.6f} ms, as PRs 6-11 recorded "
+          f"it: {ms_k2 / bound(columns_k2, ops_k2)[0]:.1f}x")
     for q, (ms_q, floor_q) in k2_widths.items():
         print(f"phase 5: K2 in place, {q}-env queue of the mid-game carry: "
               f"{ms_q:.4f} ms, launch floor (an empty kernel on its grid) "
               f"{floor_q:.4f} ms")
-    # the same kernels at the reset's full width (vec_reset: 4096 envs,
-    # 128 warps on 128 SMs)
+    # the same kernels at the reset's full width (vec_reset: 4096 envs)
     ms_k3_full, _ = cuda_ms(lambda: E.reset_map_prelude(
         s0.rng, s0.n_pieces, s0.difficulty, s0.n_players), reps=5,
         ahead=True)

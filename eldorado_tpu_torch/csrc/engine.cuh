@@ -1012,7 +1012,7 @@ ED_CONST int RESET_READS[kResetReads] = {
 // played piles, idx_last, n_in_market, the resources, the rewards and the
 // info fields, and the piles, counters and mask of a player at or past
 // n_players.
-ED_HD bool reset_writes(int f, int n_players) {
+ED_CX bool reset_writes(int f, int n_players) {
   constexpr int kPile = 5 * kCards;
   if (f < OFF_PILES) return true;  // rng, player_xy
   if (f < OFF_N_IN_HAND)
@@ -1031,6 +1031,34 @@ ED_HD bool reset_writes(int f, int n_players) {
   return f == OFF_RNG_TAINTED;       // the rewards and info fields kept
 }
 
+// The words reset_writes names, a bit a word: word f of an env of n
+// players is bit f % 32 of bits[n][f / 32] (n = 0-4; every count past 4
+// writes what 4 do, every count below 0 what 0 does).
+constexpr int kWriteWords = (kCarryWords + 31) / 32;
+struct WriteSet {
+  uint32_t bits[5][kWriteWords];
+};
+
+ED_CX WriteSet write_set() {
+  WriteSet w{};
+  for (int np = 0; np <= 4; ++np)
+    for (int f = 0; f < kCarryWords; ++f)
+      if (reset_writes(f, np)) w.bits[np][f / 32] |= 1u << (f % 32);
+  return w;
+}
+
+ED_TABLE WriteSet RESET_WRITES = write_set();
+
+// The row of RESET_WRITES of an env of n_players players.
+ED_HD const uint32_t* write_bits(int n_players) {
+  return RESET_WRITES.bits[n_players < 0 ? 0 : n_players > 4 ? 4 : n_players];
+}
+
+// Whether row w of RESET_WRITES holds word f.
+ED_HD bool writes_word(const uint32_t* w, int f) {
+  return (w[f >> 5] >> (f & 31)) & 1u;
+}
+
 // Lane l's part of loading the words RESET_READS names of column ``col``
 // of a (570, n) carry into the env's slot.
 ED_HD void load_read_set(Env& s, const int* carry, int n, int col, int l) {
@@ -1047,7 +1075,7 @@ ED_HD void load_read_set(Env& s, const int* carry, int n, int col, int l) {
 // cards the draws before it picked, then the card at position t of the
 // remaining draw pile in card order. So every deal's draws, in player
 // order, can run ahead of the picks they make, and a deal is the slots it
-// takes of the start deck laid out in card order (start_slots).
+// takes of the start deck laid out in card order (START_SLOTS).
 constexpr int kStartDeck = 8;
 constexpr int kResetPhase = 0;  // cog_env::reset leaves the phase INACTIVE
 static_assert(kStartDeck <= 8 && 4 * kHandSize <= kLanes,
@@ -1084,14 +1112,17 @@ template <class L>
 ED_HD Deal deal_draws(uint32_t& rng, int& tainted, int n_players) {
   const int draws = kHandSize * (n_players < 4 ? n_players : 4);
   const uint32_t x0 = rng;
+  // bits[0]: the draws whose first attempt rejects; bits[1 + b]: bit b of
+  // each draw's value
+  uint32_t bits[4];
+  L::ballots(bits, [&](int l, bool (&p)[4]) {
+    const int v = l < draws ? first_attempt(x0, l) : 0;
+    p[0] = v < 0;
+    for (int b = 0; b < 3; ++b) p[1 + b] = (v >> b) & 1;
+  });
   Deal d;
-  if (L::ballot([&](int l) {
-        return l < draws && first_attempt(x0, l) < 0;
-      }) == 0u) {
-    for (int b = 0; b < 3; ++b)
-      d.bit[b] = L::ballot([&](int l) {
-        return l < draws && ((first_attempt(x0, l) >> b) & 1);
-      });
+  if (bits[0] == 0u) {
+    for (int b = 0; b < 3; ++b) d.bit[b] = bits[1 + b];
     rng = minstd_skip(x0, draws);
     return d;
   }
@@ -1104,13 +1135,10 @@ ED_HD Deal deal_draws(uint32_t& rng, int& tainted, int n_players) {
   return d;
 }
 
-// The slots of the start deck that hold card c: START_DISCARD's cards
-// laid out in card order, a bit a slot.
-ED_HD uint32_t start_slots(int c) {
-  int lo = 0;
-  for (int i = 0; i < kCards; ++i) lo += i < c ? START_DISCARD[i] : 0;
-  return ((1u << START_DISCARD[c]) - 1u) << lo;
-}
+// START_SLOTS[c]: the slots of the start deck that hold card c,
+// START_DISCARD's cards laid out in card order, a bit a slot.
+ED_TABLE uint32_t START_SLOTS[kCards] = {7, 0, 0, 0, 0, 8, 0, 240, 0, 0, 0,
+                                         0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
 
 // m |= the play and special bits of the cards in ``held`` (bit c: card
 // c), as Deck::draw sets them for each card it deals.
@@ -1171,19 +1199,20 @@ ED_HD void reset_env(Env& s, int n_players, const int* xy, const int* req,
   int tainted = s.tainted;
   const Deal deal = deal_draws<L>(rng, tainted, n_players);
   uint32_t dealt = 0, held[4];
-  for (int p = 0; p < 4; ++p) {
+  for (int p = 0; p < 4 && p < n_players; ++p) {
     uint32_t left = (1u << kStartDeck) - 1u, mine = 0u;
-    for (int j = 0; j < kHandSize && p < n_players; ++j) {
+    for (int j = 0; j < kHandSize; ++j) {
       const int t = deal_value(deal, kHandSize * p + j);
       const uint32_t slot = 1u << nth_set_bit(left, t);
       left &= ~slot;
       mine |= slot;
     }
     dealt |= mine << (8 * p);
-    held[p] = L::ballot([&](int c) {
-      return c < kCards && (mine & start_slots(c)) != 0u;
-    });
   }
+  L::ballots(held, [&](int c, bool (&p)[4]) {
+    const uint32_t slots = c < kCards ? START_SLOTS[c] : 0u;
+    for (int q = 0; q < 4; ++q) p[q] = ((dealt >> (8 * q)) & slots) != 0u;
+  });
   uint32_t m0[3] = {s.sel[0], s.sel[1], s.sel[2]};
   null_heads(m0, PLAY0, 66);
   for (int j = 0; j < 3; ++j) m0[j] |= null_word(j);
@@ -1196,7 +1225,7 @@ ED_HD void reset_env(Env& s, int n_players, const int* xy, const int* req,
     // card l of each live player's piles: the recycled start deck in the
     // draw pile, less the cards dealt to the hand
     if (l < kCards) {
-      const uint32_t slots = start_slots(l);
+      const uint32_t slots = START_SLOTS[l];
       for (int p = 0; p < 4 && p < n_players; ++p) {
         const int dealt_l = ED_POPC((dealt >> (8 * p)) & slots);
         s.piles[p][DRAW][l] = START_DISCARD[l] - dealt_l;
@@ -1240,9 +1269,12 @@ ED_HD void reset_column(Env& s, int* carry, int n, int col, int n_players,
                [&](int l) { load_read_set(s, carry, n, col, l); });
   L::sync();
   L::each([&](int l) {
-    for (int f = l; f < kCarryWords; f += kLanes)
-      if (reset_writes(f, n_players))
+    const uint32_t* w = write_bits(n_players);
+    for (int k = 0; k < kWriteWords; ++k)
+      if ((w[k] >> l) & 1u) {
+        const int f = kLanes * k + l;
         carry[(size_t)f * n + col] = env_word(s, f);
+      }
   });
 }
 

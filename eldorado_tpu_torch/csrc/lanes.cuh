@@ -91,6 +91,16 @@ struct LoopLanes {
     for (int l = 0; l < kLanes; ++l) bits |= (pred(l) ? 1u : 0u) << l;
     return bits;
   }
+  // bit l of bits[i]: p[i] after pred(l, p), one call a lane
+  template <int N, class F>
+  ED_LANE static void ballots(uint32_t (&bits)[N], F pred) {
+    for (int i = 0; i < N; ++i) bits[i] = 0;
+    for (int l = 0; l < kLanes; ++l) {
+      bool p[N];
+      pred(l, p);
+      for (int i = 0; i < N; ++i) bits[i] |= (p[i] ? 1u : 0u) << l;
+    }
+  }
   // the box of every lane's hexes; add(l, box) adds lane l's
   template <class F>
   ED_LANE static Box box(F add) {
@@ -130,6 +140,14 @@ struct WarpLanes {
   template <class F>
   __device__ __forceinline__ static uint32_t ballot(F pred) {
     return __ballot_sync(kAllLanes, pred(lane()));
+  }
+  template <int N, class F>
+  __device__ __forceinline__ static void ballots(uint32_t (&bits)[N],
+                                                 F pred) {
+    bool p[N];
+    pred(lane(), p);
+#pragma unroll
+    for (int i = 0; i < N; ++i) bits[i] = __ballot_sync(kAllLanes, p[i]);
   }
   template <class F>
   __device__ __forceinline__ static Box box(F add) {

@@ -7,8 +7,9 @@
 // movement and shop masks from the pregathered (4, 19) ball rows, then
 // sel_mask and w3_cache.
 //
-// What bounds it on this card: neither bytes (a 128-env queue must move
-// 0.7 MB, 0.2 us at HBM's rate) nor instructions, but each env's chain:
+// What bounds it on this card: neither bytes (a 128-env queue reset in
+// place must move 0.36 MB, 0.1 us at HBM's rate) nor instructions (about
+// 12,000 an env), but each env's chain:
 // the column index, then the words read, the lane steps and the draws
 // between them, then the words written. The first design ran the chain
 // on a thread per env, one warp a block (a 128-env queue on 4 SMs); each
@@ -26,16 +27,18 @@
 // the engine ahead (all in sequence in the rare case a first attempt is
 // rejected) and deals the cards as bits of the start deck; the lanes
 // write the piles and masks. In place (``idx``), a warp a block, the
-// lanes store back only the words the reset writes (reset_writes): every
-// other word of the column keeps its value, and the columns are unique,
-// so each has one writer. Into a new carry (no ``idx``: vec_reset),
-// kResetEnvs envs a block write their tile out with neighbouring threads
-// on neighbouring envs (tile_plan's word units), each word from the slot
+// lanes store back only the words the reset writes, lane l word 32 k + l
+// where bit l of word k of its row of RESET_WRITES is set: every other
+// word of the column keeps its value, and the columns are unique, so each
+// has one writer. Into a new carry (no ``idx``: vec_reset), kResetEnvs
+// envs a block write their tile out with neighbouring threads on
+// neighbouring envs (tile_plan's word units), each word from the slot
 // where the reset wrote it and otherwise from the old column. Those two
 // block shapes were the fastest of 1, 4 and 8 envs a block in place and
-// of 4, 8 and 16 into a new carry. Measured on that card: 0.0099 ms per
-// queue of 1 to 128 envs, of which 0.0020 is the launch; 0.020 ms into a
-// new 4096-env carry (0.032 before).
+// of 4, 8 and 16 into a new carry; copying the old carry whole and then
+// resetting the copy in place took twice the tile's time. Measured on
+// that card: 0.0072-0.0077 ms per queue of 1 to 128 envs, of which 0.0020
+// is the launch; 0.019 ms into a new 4096-env carry (0.032 before).
 #include <cuda_runtime.h>
 
 #include "engine.cuh"
@@ -61,8 +64,9 @@ __device__ __forceinline__ void tile_out(const ed::EnvSlot* slots,
       if (u >= p.units) continue;
       int f, e;
       ed::tile_field_env(p, u, f, e);
-      v[k] = ed::reset_writes(f, np[e]) ? ed::env_word(slots[e].env, f)
-                                        : __ldg(in + (size_t)f * q + e0 + e);
+      v[k] = ed::writes_word(ed::write_bits(np[e]), f)
+                 ? ed::env_word(slots[e].env, f)
+                 : __ldg(in + (size_t)f * q + e0 + e);
     }
 #pragma unroll
     for (int k = 0; k < kUnits; ++k) {

@@ -8,9 +8,11 @@
 
 #ifdef __CUDACC__
 #define ED_HD __device__ __forceinline__
+#define ED_CX __host__ __device__ constexpr
 #define ED_TABLE static __device__ const
 #else
 #define ED_HD static inline
+#define ED_CX static constexpr
 #define ED_TABLE static const
 #endif
 

@@ -6,7 +6,8 @@ where a round's host time goes.
         [--device cuda]
 
 For each checkout of the repo named in ``--trees`` (default: this one),
-in turns (the list, then the list reversed: A, B, B, A), a fresh
+in turns (the list, then the list reversed: A, B, B, A; ``CYCLES`` times
+over, as one tree's turns spread widely on a shared host), a fresh
 process imports ``eldorado_tpu_torch`` from that checkout, so that two
 commits are compared on the same card in one run. Each process runs
 ``VecEnv(envs)``'s ``step(sample())`` loop from the main path's reset
@@ -22,10 +23,12 @@ and after, then ``--profiled`` rounds under ``torch.profiler``: each
 operation's host time per round (its self time on the CPU, aten ops and
 CUDA runtime calls), the card's busy time per round, and its split into
 the learner's kernels (K1-act, K1-sample, K3, K2) and the rest, and the
-envs that ended in those rounds. The checkout's own build
-directory holds its kernels. The last line is a JSON object of every
-number printed. Needs a CUDA device unless ``--device cpu`` (a dry run at
-a small ``--envs``).
+envs that ended in those rounds. The checkout's own build directory
+holds its kernels. Last, for each checkout, the median over its turns of
+the rate, the round's, sample()'s and step()'s host time and the card's
+busy time and split. The last line is a JSON object of every number
+printed. Needs a CUDA device unless ``--device cpu`` (a dry run at a
+small ``--envs``).
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ import sys
 import time
 from pathlib import Path
 
+
+CYCLES = 3   # times the turns A, B, B, A run
 
 # the learner's kernels, by a part of their names in the profiler's keys
 SPLIT = {"K1-act": "step_actions_kernel", "K1-sample": "sample_kernel",
@@ -116,6 +121,21 @@ def _child(root: str, envs: int, rounds: int, profiled: int,
             "ended_in_profiled_rounds": int(torch.stack(dones).sum())}
 
 
+def median(rows: list) -> dict:
+    """The median over one checkout's turns of the rate, the round's,
+    sample()'s and step()'s host µs, the card's busy µs and its split."""
+    def mid(values):
+        v = sorted(values)
+        return (v[(len(v) - 1) // 2] + v[len(v) // 2]) / 2
+    keys = ("rate", "round_us", "sample_us", "step_us",
+            "device_busy_us_per_round")
+    out = {"turns": len(rows), **{k: mid([r[k] for r in rows]) for k in keys}}
+    for name in rows[0]["device_split_us_per_round"]:
+        out[f"{name}_us"] = mid([r["device_split_us_per_round"][name]
+                                 for r in rows])
+    return out
+
+
 def report(row: dict) -> list:
     lines = [f"{row['root']}: {row['rate']:.0f} env-steps/s at "
              f"{row['envs']} envs, games of {row['max_steps']} turns at "
@@ -177,7 +197,7 @@ def main(argv=None):
     print(_card(), flush=True)
     trees = [str(Path(t).resolve()) for t in args.trees]
     rows = []
-    for root in trees + trees[::-1]:
+    for root in (trees + trees[::-1]) * CYCLES:
         out = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--child", root,
              "--envs", str(args.envs), "--rounds", str(args.rounds),
@@ -190,7 +210,12 @@ def main(argv=None):
         rows.append(json.loads(out.stdout.strip().splitlines()[-1]))
         for line in report(rows[-1]):
             print(line, flush=True)
-    print(json.dumps({"card": _card(), "turns": rows}))
+    medians = {root: median([r for r in rows if r["root"] == root])
+               for root in trees}
+    for root, m in medians.items():
+        print(f"{root}: median of {m['turns']} turns: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in m.items() if k != "turns"))
+    print(json.dumps({"card": _card(), "turns": rows, "medians": medians}))
 
 
 if __name__ == "__main__":

@@ -223,21 +223,41 @@ extern "C" void ed_host_fused_reset(const int* carry_in, int* carry_out,
     ed::reset_env<ed::LoopLanes>(
         s, np, xy + 8 * e, req + b, nr + b, end + b,
         [&](int l) { ed::load_read_set(s, carry_in, q, e, l); });
+    const uint32_t* w = ed::write_bits(np);
     for (int f = 0; f < ed::kCarryWords; ++f)
-      carry_out[(size_t)f * q + e] = ed::reset_writes(f, np)
+      carry_out[(size_t)f * q + e] = ed::writes_word(w, f)
                                          ? ed::env_word(s, f)
                                          : carry_in[(size_t)f * q + e];
   }
 }
 
 // K2's word sets: reads[f] = 1 where RESET_READS names word f;
-// writes[(np - 1) * 570 + f] = reset_writes(f, np) for np = 1-4.
+// writes[(np - 1) * 570 + f]: RESET_WRITES holds word f for np = 1-4.
 extern "C" void ed_host_reset_sets(unsigned char* reads,
                                    unsigned char* writes) {
   for (int f = 0; f < ed::kCarryWords; ++f) {
     reads[f] = 0;
     for (int np = 1; np <= 4; ++np)
-      writes[(np - 1) * ed::kCarryWords + f] = ed::reset_writes(f, np);
+      writes[(np - 1) * ed::kCarryWords + f] =
+          ed::writes_word(ed::write_bits(np), f);
   }
   for (int i = 0; i < ed::kResetReads; ++i) reads[ed::RESET_READS[i]] = 1;
+}
+
+// The words and player counts (np = -2 to 6) where the table RESET_WRITES
+// and the predicate reset_writes it is built from disagree.
+extern "C" int ed_host_write_table_mismatches() {
+  int bad = 0;
+  for (int np = -2; np <= 6; ++np)
+    for (int f = 0; f < ed::kCarryWords; ++f)
+      bad += ed::writes_word(ed::write_bits(np), f) != ed::reset_writes(f, np);
+  return bad;
+}
+
+// out[c] = START_SLOTS[c] and start[c] = START_DISCARD[c] for every card.
+extern "C" void ed_host_start_slots(uint32_t* out, int* start) {
+  for (int c = 0; c < ed::kCards; ++c) {
+    out[c] = ed::START_SLOTS[c];
+    start[c] = ed::START_DISCARD[c];
+  }
 }

@@ -26,11 +26,12 @@ engine.cuh against `step_kernel.ACT_ENVS` and kin. K2's per-env work
 (``ed::reset_env`` through the lane shim's loop form, each slot holding
 noise before it is staged) against `fused_reset_plain` on the mid-game
 carry with the players of `mapgen.mixed_batch` and seeded ball rows of
-every cell type, into a new carry and in place on an unsorted queue; with every word outside its
-read set replaced by noise, the words it writes equal the clean run's and
-no other word changes; its write set's size and its staging plan; its
-block's constants against `step_kernel.RESET_ENVS` and kin. Skips only
-where g++ is missing.
+every cell type, into a new carry and in place on an unsorted queue;
+with every word outside its read set replaced by noise, the words it
+writes equal the clean run's and no other word changes; its write set's
+size, the bit table of it that its stores read and the start deck's slot
+table; its staging plan; its block's constants against
+`step_kernel.RESET_ENVS` and kin. Skips only where g++ is missing.
 """
 import ctypes
 import re
@@ -82,6 +83,7 @@ def host_lib(tmp_path_factory):
         + [ctypes.c_int] * 2 + [ctypes.c_uint32]
     lib.ed_host_reset_sets.argtypes = [ctypes.c_void_p] * 2
     lib.ed_host_minstd_skip.argtypes = [ctypes.c_uint32, ctypes.c_void_p]
+    lib.ed_host_start_slots.argtypes = [ctypes.c_void_p] * 2
     return lib
 
 
@@ -465,6 +467,24 @@ def test_reset_sets(host_lib):
     for p in range(4):
         base = _OFF["piles"] + p * 5 * E.N_CARDTYPES + played
         assert not bool(writes[:, base:base + E.N_CARDTYPES].any())
+
+
+def test_start_slots_lay_out_the_start_deck(host_lib):
+    """START_SLOTS (the deals' slots of each card) lays START_DISCARD's
+    eight cards out in card order, a bit a slot, each slot once."""
+    slots = np.zeros(E.N_CARDTYPES, np.uint32)
+    start = np.zeros(E.N_CARDTYPES, np.int32)
+    host_lib.ed_host_start_slots(slots.ctypes.data, start.ctypes.data)
+    lo = np.concatenate([[0], np.cumsum(start)[:-1]])
+    want = ((1 << start.astype(np.int64)) - 1) << lo
+    assert slots.tolist() == want.tolist()
+    assert start.sum() == 8 and int(np.bitwise_or.reduce(slots)) == 0xFF
+
+
+def test_reset_write_table_equals_predicate(host_lib):
+    """RESET_WRITES, the bit table K2's stores read, holds exactly the
+    words reset_writes names, at every player count from -2 to 6."""
+    assert host_lib.ed_host_write_table_mismatches() == 0
 
 
 @pytest.mark.parametrize("n", [1, 3, 31, 4096, 4097])
