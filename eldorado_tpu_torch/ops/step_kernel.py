@@ -28,6 +28,7 @@ import torch
 
 from .. import stream as S
 from ..core import engine as E
+from ..spans import span
 from . import build
 
 _i32 = torch.int32
@@ -263,7 +264,8 @@ def step_actions(carry, actions, map_ids, min_xy, n_players, max_steps):
     (`HEAD_WIDTHS`): the JAX package steps such actions into states the
     game cannot reach. In-range actions the mask forbids are stepped as
     the JAX package steps them. On the card ``step_actions.last_path``
-    says how the last launch staged the carry: "16-byte" or "word"."""
+    says how the last launch staged the carry: "16-byte" or "word". Span
+    ``ed.k1act.read``: the counts' read, the step's wait on the card."""
     n = carry.shape[1]
     _check(carry, "carry", (E.CARRY_WORDS, n))
     _check(actions, "actions", (n, 5))
@@ -275,13 +277,15 @@ def step_actions(carry, actions, map_ids, min_xy, n_players, max_steps):
     if dev.type == "cpu":
         out, counts = step_actions_plain(carry, actions, map_ids, min_xy,
                                          n_players, max_steps)
-        bad, n_done = counts.tolist()
+        with span("ed.k1act.read"):
+            bad, n_done = counts.tolist()
     else:
         out = torch.empty_like(carry)
         counts = torch.zeros(3, dtype=_i32, device=dev)
         launch_step_actions(carry, actions, map_ids, min_xy, n_players,
                             max_steps, out, counts)
-        bad, n_done, vec = counts.tolist()
+        with span("ed.k1act.read"):
+            bad, n_done, vec = counts.tolist()
         step_actions.last_path = ("word", "16-byte")[vec]
     if bad:
         raise ValueError(f"{bad} envs have an action outside its head's "

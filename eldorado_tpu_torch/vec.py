@@ -28,6 +28,7 @@ from .ops import rng as R
 from .ops import step_kernel as K
 from .ops.step_kernel import (fused_reset, fused_step, sample, sample_carry,
                               step_actions)
+from .spans import span
 
 __all__ = ["VecEnv", "vec_reset", "vec_reset_varied", "vec_step",
            "vec_sample", "rollout", "rollout_chunked", "kernel_rollout",
@@ -89,19 +90,20 @@ def _reset_columns(carry, static, idx, queue_flags: bool):
     ``queue_flags`` every reset env records the whole queue's ok /
     overflow outcome, as the JAX package's reset queue does
     (vec.py:_apply_q); otherwise each env records its own. Returns the
-    queue's (ok, overflow) as device bools."""
-    n_players = static["n_players"]
-    pxy, (req, nr, end) = E.reset_map_prelude_rows(
-        carry[_OFF["rng"]], static["n_pieces"], static["difficulty"],
-        n_players, idx, tuple(static[f] for f in _MAP_FIELDS))
-    fused_reset(carry, n_players, pxy, req, nr, end, idx=idx)
-    rows = idx.long()
-    ok = static["map_ok"][rows].all()
-    over = static["map_overflow"][rows].any()
-    if queue_flags:
-        static["map_ok"][rows] = ok
-        static["map_overflow"][rows] = over
-    return ok, over
+    queue's (ok, overflow) as device bools. Span ``ed.reset``."""
+    with span("ed.reset"):
+        n_players = static["n_players"]
+        pxy, (req, nr, end) = E.reset_map_prelude_rows(
+            carry[_OFF["rng"]], static["n_pieces"], static["difficulty"],
+            n_players, idx, tuple(static[f] for f in _MAP_FIELDS))
+        fused_reset(carry, n_players, pxy, req, nr, end, idx=idx)
+        rows = idx.long()
+        ok = static["map_ok"][rows].all()
+        over = static["map_overflow"][rows].any()
+        if queue_flags:
+            static["map_ok"][rows] = ok
+            static["map_overflow"][rows] = over
+        return ok, over
 
 
 def _keyframe(idx, ok, over, static, carry, q_cap):
@@ -178,17 +180,18 @@ def _step_columns(carry, static, actions):
     """`vec_step` on a carry and its static fields (a dict, whose map rows
     the resets write in place): K1-act, then the envs done after it reset
     (K3, then K2). Returns (the new carry, done after the step and before
-    the reset)."""
-    carry, n_done = step_actions(carry, actions, static["map_ids"],
-                                 static["min_xy"], static["n_players"],
-                                 static["max_steps"])
-    done = carry[_OFF["done"]] != 0
-    if n_done:
-        n = carry.shape[1]
-        key = torch.where(done, torch.arange(n, device=carry.device), n)
-        idx = torch.sort(key).values[:n_done].to(_i32)
-        _reset_columns(carry, static, idx, queue_flags=False)
-    return carry, done
+    the reset). Span ``ed.step``."""
+    with span("ed.step"):
+        carry, n_done = step_actions(carry, actions, static["map_ids"],
+                                     static["min_xy"], static["n_players"],
+                                     static["max_steps"])
+        done = carry[_OFF["done"]] != 0
+        if n_done:
+            n = carry.shape[1]
+            key = torch.where(done, torch.arange(n, device=carry.device), n)
+            idx = torch.sort(key).values[:n_done].to(_i32)
+            _reset_columns(carry, static, idx, queue_flags=False)
+        return carry, done
 
 
 def _actions(actions, device):
@@ -385,33 +388,37 @@ class _ChunkLoop:
     ``frames``. With ``deferred`` (the async reset mode) each boundary's
     queue is taken from the done envs not in flight and reset at the next
     boundary, and the last one after the last chunk (the JAX package's
-    _rollout_chunked_q with reset_mode="async", vec.py:806-852)."""
+    _rollout_chunked_q with reset_mode="async", vec.py:806-852).
+
+    Spans: ``ed.rollout.begin`` (the set-up, whole) and
+    ``ed.queue.count_read`` (a boundary's host read)."""
 
     def __init__(self, states, sampler_rngs, chunk: int, mask_src: str,
                  exact: bool, record=None, on_chunk=None,
                  keyframes: bool = False, deferred: bool = False):
-        self.dev = dev = states.rng.device
-        self.n = n = states.rng.shape[0]
-        self.q_cap = _q_cap(n)
-        self.chunk, self.mask_src, self.exact = chunk, mask_src, exact
-        self.record, self.on_chunk, self.keyframes = record, on_chunk, \
-            keyframes
-        self.static, self.carry = _split(states)
-        self.srng = sampler_rngs.to(_i32).contiguous()
-        self.dead = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.episodes = 0
-        self.failed = torch.zeros((), dtype=torch.bool, device=dev)
-        self.overflow = torch.zeros((), dtype=torch.bool, device=dev)
-        self.env_ids = torch.arange(n, device=dev)
-        self.bufs = ([torch.empty((chunk, n, K.RECORD_WORDS[record]),
-                                  dtype=_i32, device=dev) for _ in range(2)]
-                     if record else None)
-        self.frames = []
-        # the queued envs awaiting their deferred reset (sync mode resets
-        # every queue at the boundary that took it)
-        self.inflight = torch.zeros(n, dtype=torch.bool, device=dev) \
-            if deferred else None
-        self.pending = None
+        with span("ed.rollout.begin"):
+            self.dev = dev = states.rng.device
+            self.n = n = states.rng.shape[0]
+            self.q_cap = _q_cap(n)
+            self.chunk, self.mask_src, self.exact = chunk, mask_src, exact
+            self.record, self.on_chunk, self.keyframes = record, on_chunk, \
+                keyframes
+            self.static, self.carry = _split(states)
+            self.srng = sampler_rngs.to(_i32).contiguous()
+            self.dead = torch.zeros(1, dtype=torch.int64, device=dev)
+            self.episodes = 0
+            self.failed = torch.zeros((), dtype=torch.bool, device=dev)
+            self.overflow = torch.zeros((), dtype=torch.bool, device=dev)
+            self.env_ids = torch.arange(n, device=dev)
+            self.bufs = ([torch.empty((chunk, n, K.RECORD_WORDS[record]),
+                                      dtype=_i32, device=dev)
+                          for _ in range(2)] if record else None)
+            self.frames = []
+            # the queued envs awaiting their deferred reset (sync mode
+            # resets every queue at the boundary that took it)
+            self.inflight = torch.zeros(n, dtype=torch.bool, device=dev) \
+                if deferred else None
+            self.pending = None
 
     def _reset(self, ci, idx):
         ok, over = _reset_columns(self.carry, self.static, idx,
@@ -438,7 +445,8 @@ class _ChunkLoop:
             done &= ~self.inflight
         key = torch.where(done, self.env_ids, n)
         idx = torch.sort(key).values[:self.q_cap].to(_i32)
-        count = int((idx < n).sum())
+        with span("ed.queue.count_read"):
+            count = int((idx < n).sum())
         queue = idx[:count] if count else None
         if self.inflight is not None:
             if self.pending is not None:
@@ -472,13 +480,23 @@ def _run_chunks(loops, n_chunks: int, total=None):
     the sweeps, and their map failures. ``total`` sums a list of ints over
     the processes of a group (`parallel.bootstrap.total`); none: this
     process alone. Returns ([(states, srng, keyframes)] by loop, episodes,
-    dead_steps), summed over the loops and the processes."""
+    dead_steps), summed over the loops and the processes. Spans:
+    ``ed.rollout`` (the whole) and ``ed.rollout.end`` (all after the last
+    boundary)."""
     total = total or (lambda values: values)
-    for ci in range(n_chunks):
-        for loop in loops:
-            loop.launch(ci)
-        for loop in loops:
-            loop.boundary(ci)
+    with span("ed.rollout"):
+        for ci in range(n_chunks):
+            for loop in loops:
+                loop.launch(ci)
+            for loop in loops:
+                loop.boundary(ci)
+        with span("ed.rollout.end"):
+            return _end_chunks(loops, n_chunks, total)
+
+
+def _end_chunks(loops, n_chunks: int, total):
+    """`_run_chunks` after the last boundary: async's last queues, the map
+    failures, the sweeps and the merges."""
     for loop in loops:
         loop.flush(n_chunks)
     overflow, failed = total([sum(int(lp.overflow) for lp in loops),

@@ -10,14 +10,18 @@ CUDA against CPU; the card path (K1, then K3 and K2 at every game's end)
 against the 11 trajectory goldens at full length; the city_of_gold
 surface (cog_env on the card against the numpy reference engine,
 compat.vec CUDA against CPU); rollout_chunked(reset_mode="async")
-CUDA against CPU; and the sharded path (eldorado_tpu_torch.parallel): a
+CUDA against CPU; the sharded path (eldorado_tpu_torch.parallel): a
 1-card mesh equal to the unsharded path, four shards of the card equal to
 their slices' runs, make_mesh's card count, and the sharded paths CUDA
-against CPU.
+against CPU; and the profiler's host and device clocks against each other
+through K1-act's count-read span.
 
 Marked ``cuda``: skipped where torch sees no GPU. On the machine with the
 card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
+import json
+import statistics
+
 import numpy as np
 import pytest
 import torch
@@ -778,3 +782,43 @@ def test_sharded_paths_cuda_equal_cpu(dev):
         assert torch.equal(x.cpu(), y)
     for (a1, d1), (a2, d2) in zip(res[0][4][2], res[1][4][2]):
         assert torch.equal(a1, a2) and torch.equal(d1, d2)
+
+
+def test_count_read_span_ends_after_its_kernel(dev, tmp_path):
+    """The host's clock and the card's agree in the profiler's trace: over
+    200 VecEnv rounds at 4096 envs (100-turn games, so queues reset), each
+    ``ed.k1act.read`` span, the host waiting for K1-act's counts, ends no
+    earlier than 2 us before the ``step_actions_kernel`` it waited on. A
+    host read cannot finish before the kernel it reads; the margins'
+    minimum and median are printed (``-s``)."""
+    from torch.profiler import ProfilerActivity, profile
+    env = et.VecEnv(4096, device=dev)
+    env.reset(seed=12345, n_players=4, n_pieces=3, max_steps=100)
+    for _ in range(50):
+        env.step(env.sample())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(200):
+            env.step(env.sample())
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())
+    if isinstance(events, dict):
+        events = events["traceEvents"]
+    ends = {"read": [], "kernel": []}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        if e.get("cat") == "user_annotation" and e["name"] == "ed.k1act.read":
+            ends["read"].append(e["ts"] + e["dur"])
+        elif e.get("cat") == "kernel" and "step_actions_kernel" in e["name"]:
+            ends["kernel"].append(e["ts"] + e["dur"])
+    reads, kernels = sorted(ends["read"]), sorted(ends["kernel"])
+    assert len(reads) == len(kernels) == 200
+    margins = [r - k for r, k in zip(reads, kernels)]
+    print(f"ed.k1act.read end - step_actions_kernel end over 200 rounds: "
+          f"min {min(margins):.3f} us, median "
+          f"{statistics.median(margins):.3f} us")
+    assert min(margins) >= -2.0
