@@ -43,7 +43,14 @@ before the final line:
    1, 8 and 128 envs of the mid-game carry and into a new carry at 4096
    envs, each beside an empty kernel on its grid (its launch floor); its
    bound on the bytes an in-place reset moves, and its ratio to the bound
-   of each column in and out that earlier records used;
+   of each column in and out that earlier records used; the chunk loop's
+   boundary at the main path's capacity (select against its plain
+   version; K3 and K2 launched at the capacity with the queue's device
+   count against their plain versions given it; settle against its plain
+   version with a map failure and an overflow planted in the queue;
+   select and settle timed beside an empty one-block kernel, each beside
+   its bytes bound; K3 and K2 at the capacity with a count of 1, 8 and
+   128 beside the launches sized to those envs);
 6. K1's cost probes on the carry phase 5 leaves: K1-null, P1 (null
    copy), P2 (op chain,
    nine shapes, both ops, k=4096) and P3 (step prefix, cuts 0-3 over 8
@@ -388,6 +395,7 @@ def main():
     from eldorado_tpu_torch.core import mapgen as MG
     from eldorado_tpu_torch.core.mapgen import generate_map
     from eldorado_tpu_torch.ops import build, rng as R
+    from eldorado_tpu_torch.ops import queue as QK
     from eldorado_tpu_torch.ops import step_kernel as K
     from eldorado_tpu_torch import stream as S
     from eldorado_tpu_torch import vec
@@ -624,6 +632,7 @@ def main():
     K.fused_step.launches = 0
     K.fused_reset.launches = 0
     MG.generate_map.launches = 0
+    QK.select.launches = QK.settle.launches = 0
     MG.generate_map_plain.cuda_trips = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -638,7 +647,8 @@ def main():
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = {"K1": K.fused_step.launches, "K2": K.fused_reset.launches,
-                "K3": MG.generate_map.launches}
+                "K3": MG.generate_map.launches, "select": QK.select.launches,
+                "settle": QK.settle.launches}
     queues = launches["K3"] - k3_t1   # reset queues in the timed run
     if min(launches.values()) <= 0:
         fail(f"phase 5: a kernel of the main path did not launch: {launches}")
@@ -707,8 +717,9 @@ def main():
     # the reset queue of phases 1-2: K3 into copies of the batch's maps,
     # K2 in place on a copy of the carry, each repeated on the same
     # inputs; their plain versions once; the whole queued reset
-    # (vec._reset_columns) with a synchronize after it, as the main path
-    # runs it
+    # (vec._reset_columns) with a synchronize after it, as the learner's
+    # round runs it (a chunk boundary runs select, K3, K2 and settle and
+    # reads nothing)
     k3_maps = [getattr(q_states, f).clone() for f in MAP_FIELDS]
     q_carry = stepped.clone()
     ms_k3, _ = cuda_ms(lambda: E.reset_map_prelude_rows(*q_in, k3_maps),
@@ -737,13 +748,135 @@ def main():
         k2_widths[q] = (ms_q, floor_q)
     ms_plain2, _ = cuda_ms(lambda: K.fused_reset_plain(q_carry, *q_args,
                                                        idx=idx), reps=2)
+    # the chunk loop's queue kernels (csrc/queue.cu) at the main path's
+    # capacity: select over a done row with 3% of the envs done (a
+    # short-game boundary's ~107), against its plain version; settle on
+    # the queue it took; each timed beside an empty one-block kernel
+    sel_done = (torch.rand(N_MAIN, generator=torch.Generator().manual_seed(
+        5)) < 0.03).to(torch.int32)
+    sel = [(torch.empty(Q, dtype=torch.int32, device=d),
+            torch.empty(1, dtype=torch.int32, device=d))
+           for d in (dev, torch.device("cpu"))]
+    QK.select(sel_done.to(dev), None, *sel[0])
+    QK.select(sel_done, None, *sel[1])
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(*sel)):
+        fail("phase 5: select != its plain version")
+    sel_done = sel_done.to(dev)
+    ms_sel, _ = cuda_ms(lambda: QK.select(sel_done, None, *sel[0]), reps=20,
+                        ahead=True)
+    sel_flags = (q_states.map_ok.clone(), q_states.map_overflow.clone())
+    sel_tally = torch.zeros(3, dtype=torch.int64, device=dev)
+    ms_settle, _ = cuda_ms(lambda: QK.settle(*sel[0], *sel_flags, None,
+                                             sel_tally), reps=20, ahead=True)
+    floor_block, _ = cuda_ms(lambda: K.launch_empty(1024, dev, 1024),
+                             reps=20, ahead=True)
+    sel_k = int(sel[1][1])
+    # plain versions on card tensors, into buffers of their own
+    sel_plain = tuple(torch.empty_like(t) for t in sel[0])
+    ms_plain_sel, _ = cuda_ms(lambda: QK.select_plain(sel_done, None,
+                                                      *sel_plain), reps=2)
+    ms_plain_settle, _ = cuda_ms(lambda: QK.settle_plain(
+        *sel[0], *(t.clone() for t in sel_flags), None, sel_tally.clone()),
+        reps=2)
+    # the chunk loop's boundary on that queue: K3 and K2 launched at the
+    # capacity with its device count (the loop's checks, then its raw
+    # launches) against their plain versions given the count; then settle
+    # on the card against settle_plain on CPU copies, with a map failure
+    # and an overflow planted among the queued rows and envs in flight
+    # beside the queue, so that the tally's failed and overflow bits set
+    q_idx, q_count = sel[0]
+    q_rows = q_idx[:sel_k].long()
+    np_ = q_states.n_players
+    outs = []
+    for plain in (False, True):
+        b_carry = stepped.clone()
+        b_maps = [getattr(q_states, f).clone() for f in MAP_FIELDS]
+        b_pre = E._prelude_out(Q, dev)
+        k3 = (b_carry[rng_row], q_states.n_pieces, q_states.difficulty)
+        if plain:
+            E.reset_map_prelude_rows_plain(*k3, np_, q_idx, b_maps, q_count,
+                                           b_pre)
+            K.fused_reset_plain(b_carry, np_, *b_pre, q_idx, q_count)
+        else:
+            MG.check_launch(*k3, b_maps, q_idx, n_players=np_, prelude=b_pre,
+                            count=q_count)
+            K.check_fused_reset(b_carry, np_, *b_pre, q_idx, q_count)
+            MG.launch_generate_map(*k3, b_maps, q_idx, n_players=np_,
+                                   prelude=b_pre, count=q_count)
+            K.launch_fused_reset(b_carry, b_carry, np_, *b_pre, q_idx,
+                                 q_count)
+        outs.append(dict(carry_fields(b_carry), **dict(zip(MAP_FIELDS,
+                                                           b_maps)),
+                         **{k: t[:sel_k] for k, t in zip(
+                             ("player_xy", "req", "nr", "end"), b_pre)}))
+    err_count = expect_equal("phase 5 (K3 and K2 with a device count)",
+                             *outs)
+    err_k3, err_k2 = max(err_k3, err_count), max(err_k2, err_count)
+    s_ok, s_over = outs[0]["map_ok"].clone(), outs[0]["map_overflow"].clone()
+    s_ok[q_rows[sel_k // 3]] = False
+    s_over[q_rows[2 * sel_k // 3]] = True
+    s_fl = torch.zeros(N_MAIN, dtype=torch.bool, device=dev)
+    s_fl[::97] = True
+    s_fl[q_rows] = True
+    s_tally = torch.tensor([1000, 0, 0], dtype=torch.int64, device=dev)
+    settled = [s_ok, s_over, s_fl, s_tally]
+    want = [t.to("cpu", copy=True) for t in settled]
+    QK.settle(q_idx, q_count, *settled)
+    QK.settle_plain(q_idx.cpu(), q_count.cpu(), *want)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(settled, want)):
+        fail("phase 5: settle != its plain version on the planted queue")
+    if want[3].tolist() != [1000 + sel_k, 1, 1]:
+        fail(f"phase 5: the planted failure and overflow gave the tally "
+             f"{want[3].tolist()}")
+    print(f"phase 5: the chunk loop's boundary at {N_MAIN} envs, capacity "
+          f"{Q}, {sel_k} envs queued: K3 and K2 with the device count == "
+          "their plain versions given it (every carry field, the maps, the "
+          "prelude); settle == plain with a map failure and an overflow "
+          "planted (the flags, the in-flight mask, the tally "
+          f"{want[3].tolist()})")
+    # a sparse boundary: K3 and K2 at the capacity with a device count of
+    # k, beside the launches sized to the k envs (the old boundary's)
+    sparse = {}
+    for k in K2_TIMED:
+        sp_idx = torch.full((Q,), N_MAIN, dtype=torch.int32, device=dev)
+        sp_idx[:k] = torch.arange(0, N_MAIN, N_MAIN // k, device=dev,
+                                  dtype=torch.int32)
+        sp_count = torch.tensor([k], dtype=torch.int32, device=dev)
+        sp_maps = [getattr(q_states, f).clone() for f in MAP_FIELDS]
+        sp_carry = stepped.clone()
+        k3 = (sp_carry[rng_row], q_states.n_pieces, q_states.difficulty,
+              sp_maps)
+        pre_k, pre_cap = E._prelude_out(k, dev), E._prelude_out(Q, dev)
+        runs = {
+            "k3": lambda: MG.launch_generate_map(
+                *k3, sp_idx[:k], n_players=np_, prelude=pre_k),
+            "k3_count": lambda: MG.launch_generate_map(
+                *k3, sp_idx, n_players=np_, prelude=pre_cap, count=sp_count),
+            "k2": lambda: K.launch_fused_reset(
+                sp_carry, sp_carry, np_, *pre_k, sp_idx[:k]),
+            "k2_count": lambda: K.launch_fused_reset(
+                sp_carry, sp_carry, np_, *pre_cap, sp_idx, sp_count)}
+        sparse[k] = {name: cuda_ms(fn, reps=20, ahead=True)[0]
+                     for name, fn in runs.items()}
+    for k, t in sparse.items():
+        print(f"phase 5: a boundary of {k} envs: K3 {t['k3']:.4f} ms sized "
+              f"to it, {t['k3_count']:.4f} ms at capacity {Q} with the "
+              f"device count; K2 {t['k2']:.4f} / {t['k2_count']:.4f} ms")
+    bound_sel, by_sel = bound(4 * N_MAIN + 4 * (Q + 1))
+    bound_settle, by_settle = bound(8 * sel_k + 4 + 48)
+    print(f"phase 5: the queue kernels at {N_MAIN} envs, capacity {Q}: "
+          f"select {ms_sel:.4f} ms ({sel_k} envs taken; bound "
+          f"{bound_sel:.6f} ms, {by_sel}), settle {ms_settle:.4f} ms (bound "
+          f"{bound_settle:.6f} ms, {by_settle}); an empty one-block kernel "
+          f"{floor_block:.4f} ms; their plain versions {ms_plain_sel:.4f} "
+          f"and {ms_plain_settle:.4f} ms")
     queue_ms = []
     for _ in range(5):
         qc = stepped.clone()
         qs = {f: getattr(q_states, f).clone() for f in E.STATIC_FIELDS}
         torch.cuda.synchronize()
         tq = time.perf_counter()
-        vec._reset_columns(qc, qs, idx, queue_flags=True)
+        vec._reset_columns(qc, qs, idx)
         torch.cuda.synchronize()
         queue_ms.append((time.perf_counter() - tq) * 1e3)
     queue_ms = sorted(queue_ms)[len(queue_ms) // 2]
@@ -757,9 +890,13 @@ def main():
           f"{queue_ms - ms_k3 - ms_k2:.4f} ms")
     k1_share = N_CHUNKS * ms_k1 / 1e3 / (t2 - t1)
     reset_s = (t2 - t1) - N_CHUNKS * ms_k1 / 1e3
+    # the boundaries read nothing, so their host work overlaps K1: the
+    # wall less K1's launches (timed alone, on another carry) is what the
+    # queues add, and reads a little below 0 where that is within K1's
+    # own spread
     print(f"phase 5: main path {rate:.0f} env-steps/s; K1 launches are "
           f"{100 * k1_share:.1f}% of it; the rest, {reset_s * 1e3:.2f} ms, "
-          f"is the chunk loop and its {queues} reset queues "
+          f"is what the chunk loop and its {queues} reset queues add "
           f"({reset_s * 1e3 / max(queues, 1):.3f} ms each)")
     # the bounds, on the timed launches' own inputs
     bound_k1, by_k1, ips, kinds = k1_bound(c, srng, args[2:], CHUNK,
@@ -893,14 +1030,31 @@ def main():
          "per": f"{Q}-env reset queue, in place",
          "ms_in_place": {q: t[0] for q, t in k2_widths.items()},
          "launch_floor_ms": {q: t[1] for q, t in k2_widths.items()},
-         "ms_new_carry": ms_k2_full, "launch_floor_ms_new_carry": floor_full},
+         "ms_new_carry": ms_k2_full, "launch_floor_ms_new_carry": floor_full,
+         "ms_capacity_count": {k: t["k2_count"] for k, t in sparse.items()}},
         {"name": "generate_map (K3)", "route": "cuda",
          "source": "eldorado_tpu_torch/csrc/mapgen.cu",
          "replaces": "eldorado_tpu/core/mapgen.py:416",
          "launches": launches["K3"], "max_abs_err": err_k3,
          "ms": ms_k3, "plain_ms": ms_plain3, "bound_ms": bound_k3,
          "bound_by": by_k3, "library_ms": None,
-         "per": f"{Q}-env reset queue, with the prelude"},
+         "per": f"{Q}-env reset queue, with the prelude",
+         "ms_sized": {k: t["k3"] for k, t in sparse.items()},
+         "ms_capacity_count": {k: t["k3_count"] for k, t in sparse.items()}},
+        {"name": "queue_select (select)", "route": "cuda",
+         "source": "eldorado_tpu_torch/csrc/queue.cu", "replaces": None,
+         "launches": launches["select"], "max_abs_err": 0.0,
+         "ms": ms_sel, "plain_ms": ms_plain_sel, "bound_ms": bound_sel,
+         "bound_by": by_sel, "library_ms": None,
+         "launch_floor_ms": floor_block,
+         "per": f"{Q}-env queue of {N_MAIN} envs"},
+        {"name": "queue_settle (settle)", "route": "cuda",
+         "source": "eldorado_tpu_torch/csrc/queue.cu", "replaces": None,
+         "launches": launches["settle"], "max_abs_err": 0.0,
+         "ms": ms_settle, "plain_ms": ms_plain_settle,
+         "bound_ms": bound_settle,
+         "bound_by": by_settle, "library_ms": None,
+         "launch_floor_ms": floor_block, "per": f"{sel_k}-env queue"},
     ]
     record["kernels"] += phase6(dev, c, srng, states)
     record["kernels"] += phase7(dev, feed_checks, args, ms_k1 / CHUNK, plain1)

@@ -254,7 +254,7 @@ class _DeviceEnv:
             for name, v in zip(_PARAMS, (n_players, n_pieces, difficulty,
                                          max_steps)):
                 st[name][0] = int(v)
-        V._reset_columns(carry, st, self._idx, queue_flags=False)
+        V._reset_columns(carry, st, self._idx)
         self._pull(after_reset=True)
         self._check_map()
 

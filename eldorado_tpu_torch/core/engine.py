@@ -1337,15 +1337,26 @@ def reset_map_prelude(rng, n_pieces, difficulty, n_players):
 
 
 def reset_map_prelude_rows_plain(rng, n_pieces, difficulty, n_players, idx,
-                                 maps):
+                                 maps, count=None, prelude=None):
     """The plain version of `reset_map_prelude_rows`:
-    `reset_map_prelude_plain` on the gathered rows, scattered back."""
+    `reset_map_prelude_plain` on the gathered rows (the first ``count``
+    of them with ``count``), scattered back; with ``prelude``, written
+    into its first rows too."""
+    if count is not None:
+        idx = idx[:int(count)]
+        if not idx.numel():   # an empty queue generates nothing
+            pre = prelude or _prelude_out(0, rng.device)
+            return pre[0], pre[1:]
     rows = idx.long()
     gen, player_xy, ball = reset_map_prelude_plain(
         rng[rows], n_pieces[rows], difficulty[rows], n_players[rows])
     for t, v in zip(maps, (gen.ids, gen.min_xy, gen.ok, gen.overflow)):
         t[rows] = v
-    return player_xy, ball
+    if prelude is None:
+        return player_xy, ball
+    for t, v in zip(prelude, (player_xy, *ball)):
+        t[:rows.numel()] = v
+    return prelude[0], prelude[1:]
 
 
 def reset_map_prelude_rows(rng, n_pieces, difficulty, n_players, idx, maps):

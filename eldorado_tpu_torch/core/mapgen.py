@@ -472,6 +472,48 @@ def generate_map_plain(rng_state, n_pieces, difficulty) -> MapGenOut:
 generate_map_plain.cuda_trips = 0
 
 
+def check_launch(rng, n_pieces, difficulty, maps, idx=None, starts=None,
+                 n_players=None, prelude=None, count=None):
+    """`launch`'s checks of its arguments (CUDA tensors only), and of
+    ``count`` ((1,) int32 on the device), which `launch_generate_map`
+    takes for a queue launched at its capacity. Returns their device."""
+    from ..ops.step_kernel import _check, _device_of
+    from .engine import N_BALL
+    n = rng.shape[0]
+    q = n if idx is None else idx.shape[0]
+    map_ids, min_xy, ok, overflow = maps
+    for name, t in (("rng", rng), ("n_pieces", n_pieces),
+                    ("difficulty", difficulty)):
+        _check(t, name, (n,))
+    _check(map_ids, "map_ids", (n, GRIDSIZE * GRIDSIZE))
+    _check(min_xy, "min_xy", (n, 2))
+    _check(ok, "ok", (n,), torch.bool)
+    _check(overflow, "overflow", (n,), torch.bool)
+    outs = list(maps)
+    if idx is not None:
+        _check(idx, "idx", (q,))
+        outs.append(idx)
+    if count is not None:
+        _check(count, "count", (1,))
+        outs.append(count)
+    if starts is not None:
+        _check(starts[0], "start_xy", (q, MAX_N_PLAYERS, 2))
+        _check(starts[1], "start_no", (q, MAX_N_PLAYERS))
+        outs += starts
+    if prelude is not None:
+        _check(n_players, "n_players", (n,))
+        _check(prelude[0], "player_xy", (q, MAX_N_PLAYERS, 2))
+        for name, t in zip(("req", "nr", "end"), prelude[1:]):
+            _check(t, name, (q, MAX_N_PLAYERS, N_BALL))
+        outs += [n_players, *prelude]
+    dev = _device_of([rng, n_pieces, difficulty] + outs)
+    if dev.type != "cuda":
+        raise ValueError(f"K3 runs on a CUDA device, not {dev}")
+    if map_ids.data_ptr() % 16:
+        raise ValueError("map_ids must be 16-byte aligned")
+    return dev
+
+
 def launch(rng, n_pieces, difficulty, maps, idx=None, starts=None,
            n_players=None, prelude=None, shape=None) -> None:
     """Launch K3 (csrc/mapgen.cu) on the card: map generation, and with
@@ -488,52 +530,36 @@ def launch(rng, n_pieces, difficulty, maps, idx=None, starts=None,
     shape other than the default (`launch_shape`). Counted in
     ``generate_map.launches``.
     """
+    check_launch(rng, n_pieces, difficulty, maps, idx, starts, n_players,
+                 prelude)
+    launch_generate_map(rng, n_pieces, difficulty, maps, idx, starts,
+                        n_players, prelude, shape)
+
+
+def launch_generate_map(rng, n_pieces, difficulty, maps, idx=None,
+                        starts=None, n_players=None, prelude=None,
+                        shape=None, count=None) -> None:
+    """K3's launch alone, on CUDA tensors that `check_launch` has checked
+    (the chunk loop's launch, which checks once per call); the arguments
+    as `launch`'s, and ``count``: a (1,) int32 on the device that limits
+    the launch to the slots below it (a queue launched at its capacity and
+    sized on the card)."""
     from ..ops import build
-    from ..ops.step_kernel import _check, _device_of
-    from .engine import N_BALL
-    n = rng.shape[0]
-    q = n if idx is None else idx.shape[0]
-    map_ids, min_xy, ok, overflow = maps
-    for name, t in (("rng", rng), ("n_pieces", n_pieces),
-                    ("difficulty", difficulty)):
-        _check(t, name, (n,))
-    _check(map_ids, "map_ids", (n, GRIDSIZE * GRIDSIZE))
-    _check(min_xy, "min_xy", (n, 2))
-    _check(ok, "ok", (n,), torch.bool)
-    _check(overflow, "overflow", (n,), torch.bool)
-    outs = list(maps)
-    if idx is not None:
-        _check(idx, "idx", (q,))
-    if starts is not None:
-        _check(starts[0], "start_xy", (q, MAX_N_PLAYERS, 2))
-        _check(starts[1], "start_no", (q, MAX_N_PLAYERS))
-        outs += starts
-    if prelude is not None:
-        _check(n_players, "n_players", (n,))
-        _check(prelude[0], "player_xy", (q, MAX_N_PLAYERS, 2))
-        for name, t in zip(("req", "nr", "end"), prelude[1:]):
-            _check(t, name, (q, MAX_N_PLAYERS, N_BALL))
-        outs += [n_players, *prelude]
-    dev = _device_of([rng, n_pieces, difficulty] + outs
-                     + ([] if idx is None else [idx]))
-    if dev.type != "cuda":
-        raise ValueError(f"K3 runs on a CUDA device, not {dev}")
-    if map_ids.data_ptr() % 16:
-        raise ValueError("map_ids must be 16-byte aligned")
 
     def ptr(t):
         return None if t is None else t.data_ptr()
+    dev = rng.device
     st = starts or (None, None)
     pre = prelude or (None,) * 4
     lib = build.load()
     args = (rng.data_ptr(), ptr(idx), n_pieces.data_ptr(),
             difficulty.data_ptr(),
             ptr(n_players if prelude is not None else None),
-            _K(dev).ovl.data_ptr(), map_ids.data_ptr(), min_xy.data_ptr(),
-            ok.data_ptr(), overflow.data_ptr(), ptr(st[0]), ptr(st[1]),
-            *map(ptr, pre), q)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+            _K(dev).ovl.data_ptr(), *(t.data_ptr() for t in maps),
+            ptr(st[0]), ptr(st[1]), *map(ptr, pre),
+            rng.shape[0] if idx is None else idx.shape[0], ptr(count))
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         if shape is None:
             err = lib.ed_generate_map(*args, stream)
         else:

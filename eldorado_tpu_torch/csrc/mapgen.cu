@@ -72,7 +72,7 @@ generate_map_kernel(const int* __restrict__ rng, const int* __restrict__ idx,
                     const int* __restrict__ ovl, int* map_ids, int* min_xy,
                     unsigned char* ok, unsigned char* overflow, int* start_xy,
                     int* start_no, int* player_xy, int* req, int* nr,
-                    int* end, int q) {
+                    int* end, int q, const int* __restrict__ count) {
   extern __shared__ __align__(16) unsigned char ed_map_smem[];
   const ed::MapArgs a = {rng,      idx,      n_pieces, difficulty, n_players,
                          ovl,      map_ids,  min_xy,   ok,         overflow,
@@ -81,17 +81,20 @@ generate_map_kernel(const int* __restrict__ rng, const int* __restrict__ idx,
   const int envs = blockDim.x / ed::kLanes, warp = threadIdx.x / ed::kLanes;
   ed::MapScratch* scratch = reinterpret_cast<ed::MapScratch*>(ed_map_smem);
   const int e = blockIdx.x * envs + warp;
+  // with a device count, slots at or past it are empty: their warps skip
+  // the env, after the block's table staging
+  const bool live = e < q && (count == nullptr || e < *count);
   if constexpr (kOvlShared) {
     ed::Quad* tab = reinterpret_cast<ed::Quad*>(scratch + envs);
     const ed::Quad* src = reinterpret_cast<const ed::Quad*>(ovl);
     for (int j = threadIdx.x; j < ed::kOvlWords / 4; j += blockDim.x)
       tab[j] = __ldg(src + j);
     __syncthreads();
-    if (e < q)
+    if (live)
       ed::map_env<ed::WarpLanes>(
           a, e, scratch[warp], ed::OvlPlain{reinterpret_cast<int*>(tab)});
   } else {
-    if (e < q)
+    if (live)
       ed::map_env<ed::WarpLanes>(a, e, scratch[warp], ed::OvlLdg{ovl});
   }
 }
@@ -104,7 +107,8 @@ cudaError_t allow_smem(int envs) {
 }
 
 template <bool kOvlShared>
-int launch(const ed::MapArgs& a, int envs, cudaStream_t stream) {
+int launch(const ed::MapArgs& a, const int* count, int envs,
+           cudaStream_t stream) {
   const cudaError_t err = allow_smem<kOvlShared>(envs);
   if (err != cudaSuccess) return (int)err;
   generate_map_kernel<kOvlShared>
@@ -112,7 +116,7 @@ int launch(const ed::MapArgs& a, int envs, cudaStream_t stream) {
          smem_bytes(envs, kOvlShared), stream>>>(
           a.rng, a.idx, a.n_pieces, a.difficulty, a.n_players, a.ovl,
           a.map_ids, a.min_xy, a.ok, a.overflow, a.start_xy, a.start_no,
-          a.player_xy, a.req, a.nr, a.end, a.q);
+          a.player_xy, a.req, a.nr, a.end, a.q, count);
   return (int)cudaGetLastError();
 }
 
@@ -123,7 +127,9 @@ int launch(const ed::MapArgs& a, int envs, cudaStream_t stream) {
 // 2304), both 16-byte aligned; min_xy (n, 2), ok / overflow (n,) bool:
 // written at those rows. start_xy (q, 4, 2) and start_no (q, 4) may be
 // null; player_xy (q, 4, 2) and req / nr / end (q, 4, 19) are null
-// together, and n_players with them. envs_per_block in 1..4 (else
+// together, and n_players with them. count, a (1,) int32 on the device or
+// null: with it, only the slots e < *count generate (a queue launched at its
+// capacity, sized on the card); null: all q. envs_per_block in 1..4 (else
 // cudaErrorInvalidValue); ovl_shared stages the pair table in each block's
 // shared memory instead of reading it through L1.
 extern "C" int ed_generate_map_shaped(
@@ -131,7 +137,7 @@ extern "C" int ed_generate_map_shaped(
     const void* difficulty, const void* n_players, const void* ovl,
     void* map_ids, void* min_xy, void* ok, void* overflow, void* start_xy,
     void* start_no, void* player_xy, void* req, void* nr, void* end, int q,
-    int envs_per_block, int ovl_shared, void* stream) {
+    const void* count, int envs_per_block, int ovl_shared, void* stream) {
   if (envs_per_block < 1 || envs_per_block > kMaxEnvsPerBlock)
     return (int)cudaErrorInvalidValue;
   if (q <= 0) return 0;
@@ -143,8 +149,9 @@ extern "C" int ed_generate_map_shaped(
       (int*)player_xy,        (int*)req,              (int*)nr,
       (int*)end,              q};
   cudaStream_t st = (cudaStream_t)stream;
-  return ovl_shared ? launch<true>(a, envs_per_block, st)
-                    : launch<false>(a, envs_per_block, st);
+  const int* c = (const int*)count;
+  return ovl_shared ? launch<true>(a, c, envs_per_block, st)
+                    : launch<false>(a, c, envs_per_block, st);
 }
 
 // The arguments of ed_generate_map_shaped without the shape: the default.
@@ -154,10 +161,10 @@ extern "C" int ed_generate_map(const void* rng, const void* idx,
                                void* map_ids, void* min_xy, void* ok,
                                void* overflow, void* start_xy, void* start_no,
                                void* player_xy, void* req, void* nr, void* end,
-                               int q, void* stream) {
+                               int q, const void* count, void* stream) {
   return ed_generate_map_shaped(rng, idx, n_pieces, difficulty, n_players,
                                 ovl, map_ids, min_xy, ok, overflow, start_xy,
-                                start_no, player_xy, req, nr, end, q,
+                                start_no, player_xy, req, nr, end, q, count,
                                 kDefaultEnvs, kDefaultOvlShared, stream);
 }
 

@@ -86,6 +86,7 @@ __global__ void __launch_bounds__(ed::kLanes
                                   * (kInPlace ? 1 : ed::kResetEnvs))
 fused_reset_kernel(const int* carry_in, int* carry_out,
                    const int* __restrict__ idx,
+                   const int* __restrict__ count,
                    const int* __restrict__ n_players,
                    const int* __restrict__ xy,
                    const int* __restrict__ req, const int* __restrict__ nr,
@@ -97,7 +98,7 @@ fused_reset_kernel(const int* carry_in, int* carry_out,
   const size_t b = (size_t)e * 4 * ed::kBall;
   ed::Env& s = slots[warp].env;
   if constexpr (kInPlace) {
-    if (e >= q) return;
+    if (e >= q || (count != nullptr && e >= *count)) return;
     const int col = idx[e];
     ed::reset_column<ed::WarpLanes>(s, carry_out, n, col, n_players[col],
                                     xy + 8 * (size_t)e, req + b, nr + b,
@@ -127,25 +128,30 @@ fused_reset_kernel(const int* carry_in, int* carry_out,
 
 // carry_in / carry_out: (570, n), the same tensor for the in-place form;
 // idx (q,) unique columns, or null (then n == q and carry_out is a new
-// tensor); n_players (n,) read at the column; player_xy (q, 4, 2) and
-// req / nr / end (q, 4, 19) at e.
+// tensor); count, in place only, a (1,) int32 on the device or null: with
+// it, only the slots e < *count reset (a queue launched at its capacity,
+// sized on the card); n_players (n,) read at the column; player_xy (q, 4,
+// 2) and req / nr / end (q, 4, 19) at e.
 extern "C" int ed_fused_reset(const void* carry_in, void* carry_out,
-                              const void* idx, const void* n_players,
-                              const void* player_xy, const void* req,
-                              const void* nr, const void* end, int n, int q,
-                              void* stream) {
+                              const void* idx, const void* count,
+                              const void* n_players, const void* player_xy,
+                              const void* req, const void* nr, const void* end,
+                              int n, int q, void* stream) {
   if (q <= 0) return 0;
+  if (count != nullptr && idx == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int *in = (const int*)carry_in, *ix = (const int*)idx,
-            *np = (const int*)n_players, *pxy = (const int*)player_xy,
+            *cnt = (const int*)count, *np = (const int*)n_players,
+            *pxy = (const int*)player_xy,
             *rq = (const int*)req, *rn = (const int*)nr, *re = (const int*)end;
   int* out = (int*)carry_out;
   if (idx != nullptr)
     fused_reset_kernel<true>
-        <<<q, ed::kLanes, 0, s>>>(in, out, ix, np, pxy, rq, rn, re, n, q);
+        <<<q, ed::kLanes, 0, s>>>(in, out, ix, cnt, np, pxy, rq, rn, re, n,
+                                  q);
   else
     fused_reset_kernel<false><<<(q + ed::kResetEnvs - 1) / ed::kResetEnvs,
                                 ed::kLanes * ed::kResetEnvs, 0, s>>>(
-        in, out, ix, np, pxy, rq, rn, re, n, q);
+        in, out, ix, cnt, np, pxy, rq, rn, re, n, q);
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("step_kernel.cu", "step_compact.cu", "step_full.cu",
            "step_traj.cu", "step_actions.cu", "sample.cu", "reset_kernel.cu",
-           "mapgen.cu", "probes.cu")
+           "mapgen.cu", "queue.cu", "probes.cu")
 HEADERS = ("rng.cuh", "lanes.cuh", "engine.cuh", "step_kernel.cuh",
            "mapgen.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -54,14 +54,19 @@ _ENTRIES = {
     "ed_sample_carry": [_P] * 5 + [_I] * 2 + [_P],
     # n, threads per block, stream
     "ed_empty": [_I, _I, _P],
-    # carry_in, carry_out, idx, n_players, player_xy, req, nr, end, n, q,
-    # stream
-    "ed_fused_reset": [_P] * 8 + [_I] * 2 + [_P],
+    # carry_in, carry_out, idx, count, n_players, player_xy, req, nr, end,
+    # n, q, stream
+    "ed_fused_reset": [_P] * 9 + [_I] * 2 + [_P],
     # rng, idx, n_pieces, difficulty, n_players, ovl, map_ids, min_xy, ok,
-    # overflow, start_xy, start_no, player_xy, req, nr, end, q, stream
-    "ed_generate_map": [_P] * 16 + [_I] + [_P],
+    # overflow, start_xy, start_no, player_xy, req, nr, end, q, count,
+    # stream
+    "ed_generate_map": [_P] * 16 + [_I] + [_P] * 2,
     # the same, then envs_per_block, ovl_shared before the stream
-    "ed_generate_map_shaped": [_P] * 16 + [_I] * 3 + [_P],
+    "ed_generate_map_shaped": [_P] * 16 + [_I, _P, _I, _I, _P],
+    # done, inflight, idx, count, n, q_cap, stream
+    "ed_queue_select": [_P] * 4 + [_I] * 2 + [_P],
+    # idx, count, ok, overflow, inflight, tally, q_cap, stream
+    "ed_queue_settle": [_P] * 6 + [_I] + [_P],
     # envs_per_block, ovl_shared; out: envs per block, threads per block,
     # shared bytes per block, blocks per SM, ovl_shared
     "ed_generate_map_shape": [_I] * 2 + [_P],

@@ -19,6 +19,10 @@ plain int attribute, ``launches`` (and ``fused_step.null_launches`` for
 K1-null, K1's cost probe; ``fused_step.record_launches[record]`` for the
 launches that also wrote per-step records, which ``launches`` counts too;
 ``sample.carry_launches`` for K1-sample's launches from the carry).
+``check_fused_step`` / ``check_fused_reset`` are a wrapper's checks, and
+``launch_fused_step`` / ``launch_fused_reset`` / ``launch_step_actions``
+its launch alone on checked CUDA tensors (the chunk loop checks once per
+call and launches at every chunk).
 """
 from __future__ import annotations
 
@@ -133,27 +137,10 @@ def fused_step_plain(carry, srng, map_ids, min_xy, n_players, max_steps,
     return E.pack_dyn(dyn), srng, act
 
 
-def fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
-               n_steps: int, mask_src: str = "storage",
-               gate_dead: bool = False, dead=None, null_body: bool = False,
-               record=None, records=None):
-    """K1: ``n_steps`` fused sample+step rounds over every env in one
-    launch (csrc/step_kernel.cu). ``carry`` (W, n) int32 dyn state,
-    ``srng`` (n,) sampler engines, ``map_ids`` (n, 2304), ``min_xy``
-    (n, 2), ``n_players``/``max_steps`` (n,), all int32; ``dead`` an
-    optional (1,) int64 counter of dead steps, incremented in place.
-    ``gate_dead`` freezes done envs' sampler streams. Returns new
-    (carry, srng, actions of the last step (n, 5)).
-
-    ``record`` ("compact" or "full") also writes the learner feed: step
-    t's post-step record of env e into ``records[t, e]``, a caller-given
-    (n_steps, n, `RECORD_WORDS[record]`) int32 tensor (the layout of
-    stream.py's module docstring); ``record="traj"`` writes rollout's
-    per-step fields (`pack_traj`) the same way.
-
-    ``null_body`` launches K1-null instead, the cost probe of
-    make_fused_step(null_body=True): the same launch and per-env staging
-    with no step, counted in ``fused_step.null_launches``."""
+def check_fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
+                     n_steps: int, mask_src: str = "storage", dead=None,
+                     null_body: bool = False, record=None, records=None):
+    """`fused_step`'s checks of its arguments; returns their device."""
     n = carry.shape[1]
     _check(carry, "carry", (E.CARRY_WORDS, n))
     _check(srng, "srng", (n,))
@@ -177,25 +164,65 @@ def fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
             raise ValueError(f"record={record!r} needs a records tensor")
         _check(records, "records", (n_steps, n, _RECORD_SEL[record]))
         args.append(records)
-    dev = _device_of(args)
+    return _device_of(args)
+
+
+def fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
+               n_steps: int, mask_src: str = "storage",
+               gate_dead: bool = False, dead=None, null_body: bool = False,
+               record=None, records=None):
+    """K1: ``n_steps`` fused sample+step rounds over every env in one
+    launch (csrc/step_kernel.cu). ``carry`` (W, n) int32 dyn state,
+    ``srng`` (n,) sampler engines, ``map_ids`` (n, 2304), ``min_xy``
+    (n, 2), ``n_players``/``max_steps`` (n,), all int32; ``dead`` an
+    optional (1,) int64 counter of dead steps, incremented in place.
+    ``gate_dead`` freezes done envs' sampler streams. Returns new
+    (carry, srng, actions of the last step (n, 5)).
+
+    ``record`` ("compact" or "full") also writes the learner feed: step
+    t's post-step record of env e into ``records[t, e]``, a caller-given
+    (n_steps, n, `RECORD_WORDS[record]`) int32 tensor (the layout of
+    stream.py's module docstring); ``record="traj"`` writes rollout's
+    per-step fields (`pack_traj`) the same way.
+
+    ``null_body`` launches K1-null instead, the cost probe of
+    make_fused_step(null_body=True): the same launch and per-env staging
+    with no step, counted in ``fused_step.null_launches``."""
+    dev = check_fused_step(carry, srng, map_ids, min_xy, n_players,
+                           max_steps, n_steps, mask_src, dead, null_body,
+                           record, records)
     if dev.type == "cpu":
         return fused_step_plain(carry, srng, map_ids, min_xy, n_players,
                                 max_steps, n_steps, mask_src, gate_dead, dead,
                                 null_body, record, records)
-    lib = build.load()
     out = torch.empty_like(carry)
     srng_out = torch.empty_like(srng)
-    act = torch.zeros((n, 5), dtype=_i32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.ed_fused_step(
+    act = torch.zeros((carry.shape[1], 5), dtype=_i32, device=dev)
+    launch_fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
+                      n_steps, mask_src, gate_dead, dead, record, records,
+                      out, srng_out, act, null_body)
+    return out, srng_out, act
+
+
+def launch_fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
+                      n_steps: int, mask_src: str, gate_dead: bool, dead,
+                      record, records, out, srng_out, act,
+                      null_body: bool = False) -> None:
+    """K1's launch alone, on CUDA tensors that `check_fused_step` has
+    checked: the new carry into ``out``, the sampler engines into
+    ``srng_out`` and the last step's actions into ``act`` ((n, 5) int32),
+    nothing allocated or read back (the chunk loop's launch, which checks
+    once per call). Counted as `fused_step` counts."""
+    with torch.cuda.device(carry.device):
+        err = build.load().ed_fused_step(
             carry.data_ptr(), out.data_ptr(), srng.data_ptr(),
             srng_out.data_ptr(), map_ids.data_ptr(), min_xy.data_ptr(),
             n_players.data_ptr(), max_steps.data_ptr(), act.data_ptr(),
             dead.data_ptr() if dead is not None else None,
             records.data_ptr() if record is not None else None,
-            n, int(n_steps), _MASK_SRC[mask_src], int(gate_dead),
-            int(null_body), _RECORD_SEL[record], stream)
+            carry.shape[1], int(n_steps), _MASK_SRC[mask_src],
+            int(gate_dead), int(null_body), _RECORD_SEL[record],
+            torch.cuda.current_stream(carry.device).cuda_stream)
     build.check(err, "fused_step")
     if null_body:
         fused_step.null_launches += 1
@@ -203,7 +230,6 @@ def fused_step(carry, srng, map_ids, min_xy, n_players, max_steps,
         fused_step.launches += 1
         if record is not None:
             fused_step.record_launches[record] += 1
-    return out, srng_out, act
 
 
 fused_step.launches = 0
@@ -421,9 +447,17 @@ def launch_empty(n: int, device, threads: int = 32) -> None:
 
 
 # ------------------------------------------------------------------- K2
-def fused_reset_plain(carry, n_players, player_xy, req, nr, end, idx=None):
+def fused_reset_plain(carry, n_players, player_xy, req, nr, end, idx=None,
+                      count=None):
     """Plain version of K2: `engine.reset_body` on every carry column; with
-    ``idx``, on the gathered columns ``idx``, scattered back in place."""
+    ``idx``, on the gathered columns ``idx``, scattered back in place, and
+    with ``count`` on the first ``count`` of them."""
+    if count is not None:
+        k = int(count)
+        if not k:   # an empty queue resets nothing
+            return carry
+        return fused_reset_plain(carry, n_players, player_xy[:k], req[:k],
+                                 nr[:k], end[:k], idx[:k])
     if idx is not None:
         cols = idx.long()
         carry[:, cols] = fused_reset_plain(carry[:, cols], n_players[cols],
@@ -432,6 +466,32 @@ def fused_reset_plain(carry, n_players, player_xy, req, nr, end, idx=None):
     dyn = E.vreset_body(E.unpack_dyn(carry), n_players, player_xy,
                         req, nr, end)
     return E.pack_dyn(dyn)
+
+
+def check_fused_reset(carry, n_players, player_xy, req, nr, end, idx=None,
+                      count=None):
+    """`fused_reset`'s checks of its arguments, and of ``count`` ((1,)
+    int32 on the device), which `launch_fused_reset` takes for an
+    in-place queue launched at its capacity: only the first ``count``
+    slots reset. Returns their device."""
+    q = player_xy.shape[0]
+    n = q if idx is None else carry.shape[1]
+    _check(carry, "carry", (E.CARRY_WORDS, n))
+    _check(n_players, "n_players", (n,))
+    _check(player_xy, "player_xy", (q, 4, 2))
+    for name, t in (("req", req), ("nr", nr), ("end", end)):
+        _check(t, name, (q, 4, E.N_BALL))
+    args = [carry, n_players, player_xy, req, nr, end]
+    if idx is not None:
+        _check(idx, "idx", (q,))
+        args.append(idx)
+    if count is not None:
+        if idx is None:
+            raise ValueError("a device count sizes an in-place queue: "
+                             "give idx")
+        _check(count, "count", (1,))
+        args.append(count)
+    return _device_of(args)
 
 
 def fused_reset(carry, n_players, player_xy, req, nr, end, idx=None):
@@ -444,34 +504,33 @@ def fused_reset(carry, n_players, player_xy, req, nr, end, idx=None):
     envs', and a new carry is returned. With ``idx`` ((q,) int32, unique
     columns), ``carry`` (W, n) and ``n_players`` (n,) are the whole
     batch's: the columns ``idx`` are reset in place, and ``carry`` is
-    returned."""
-    q = player_xy.shape[0]
-    n = q if idx is None else carry.shape[1]
-    _check(carry, "carry", (E.CARRY_WORDS, n))
-    _check(n_players, "n_players", (n,))
-    _check(player_xy, "player_xy", (q, 4, 2))
-    for name, t in (("req", req), ("nr", nr), ("end", end)):
-        _check(t, name, (q, 4, E.N_BALL))
-    args = [carry, n_players, player_xy, req, nr, end]
-    if idx is not None:
-        _check(idx, "idx", (q,))
-        args.append(idx)
-    dev = _device_of(args)
+    returned. (A queue sized on the card, by a device count, is the chunk
+    loop's: `check_fused_reset` and `launch_fused_reset`.)"""
+    dev = check_fused_reset(carry, n_players, player_xy, req, nr, end, idx)
     if dev.type == "cpu":
         return fused_reset_plain(carry, n_players, player_xy, req, nr, end,
                                  idx)
-    lib = build.load()
     out = torch.empty_like(carry) if idx is None else carry
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.ed_fused_reset(
+    launch_fused_reset(carry, out, n_players, player_xy, req, nr, end, idx)
+    return out
+
+
+def launch_fused_reset(carry, out, n_players, player_xy, req, nr, end,
+                       idx=None, count=None) -> None:
+    """K2's launch alone, on CUDA tensors that `check_fused_reset` has
+    checked (``out`` is ``carry`` in place); counted in
+    ``fused_reset.launches``."""
+    with torch.cuda.device(carry.device):
+        err = build.load().ed_fused_reset(
             carry.data_ptr(), out.data_ptr(),
-            None if idx is None else idx.data_ptr(), n_players.data_ptr(),
-            player_xy.data_ptr(), req.data_ptr(), nr.data_ptr(),
-            end.data_ptr(), n, q, stream)
+            None if idx is None else idx.data_ptr(),
+            None if count is None else count.data_ptr(),
+            n_players.data_ptr(), player_xy.data_ptr(), req.data_ptr(),
+            nr.data_ptr(), end.data_ptr(), carry.shape[1],
+            player_xy.shape[0],
+            torch.cuda.current_stream(carry.device).cuda_stream)
     build.check(err, "fused_reset")
     fused_reset.launches += 1
-    return out
 
 
 fused_reset.launches = 0

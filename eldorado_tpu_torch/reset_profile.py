@@ -25,9 +25,12 @@ each process
    new maps, a new carry), each with CUDA events over 20 launches
    enqueued behind a spin of the card, so that the events time the
    device alone; beside K2 at each shape, an empty kernel launched on
-   K2's grid (its launch floor); at q = 128 the whole queued reset
-   (`vec._reset_columns`: K3, K2 and the queue's flags) between
-   ``torch.cuda.synchronize()`` calls and, once, the plain generator and
+   K2's grid (its launch floor); at q = 128 a whole chunk boundary whose
+   queue is those envs (`vec._ChunkLoop.boundary` on the batch with their
+   done flags set: select, then K3 and K2 with the queue's count, then
+   settle; in a checkout before that design, the sort, the count's read,
+   K3, K2 and the flags), after one that loads its kernels, between
+   ``torch.cuda.synchronize()`` calls, and, once, the plain generator and
    prelude on the same rows.
 
 The last line is a JSON object of every number. Needs a CUDA device.
@@ -51,11 +54,12 @@ _KERNELS = {"k1": "fused_step_kernel", "k2": "fused_reset_kernel",
 
 def _kernel_times(prof):
     """(summed device time of every kernel, {k1, k2, k3: device time}), in
-    ms."""
+    ms. A span's range on the device (a user annotation) is no kernel."""
     import torch
     total, per = 0.0, dict.fromkeys(_KERNELS, 0.0)
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
             continue
         ms = ev.self_device_time_total / 1e3
         total += ms
@@ -153,9 +157,13 @@ def profile(root: str) -> dict:
             "k2": _event_ms(lambda: K.fused_reset(*k2, idx=idx)),
             "k2_floor": _event_ms(_k2_floor(K, q, dev, True))}
         if q == QUEUES[-1]:
-            c, st = carry.clone(), {f: t.clone() for f, t in static.items()}
-            shapes[f"q{q}"]["queue"] = _synced_ms(lambda: vec._reset_columns(
-                c, st, idx, queue_flags=True))
+            loop = vec._ChunkLoop(states, srng, CHUNK, "storage", True)
+
+            def boundary():
+                loop.carry[vec._OFF["done"]][idx.long()] = 1
+                return _synced_ms(lambda: loop.boundary(0))
+            boundary()
+            shapes[f"q{q}"]["queue"] = boundary()
             shapes[f"q{q}"]["plain_k3"] = _synced_ms(
                 lambda: E.reset_map_prelude_rows_plain(*cols, idx, maps))
     # vec_reset's launches at full width: new maps, a new carry

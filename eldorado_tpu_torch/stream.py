@@ -458,9 +458,11 @@ class _RingFeed:
     event on the compute stream), then pushes chunk ci-1, whose copy was
     started a chunk earlier, while K1 runs chunk ci. The chunk loop
     (`vec._rollout_chunks`) double-buffers the device records; the host
-    has waited for chunk ci-1's copy before it launches chunk ci+1, which
-    reuses that buffer. CPU tensors need no copy: the records are read in
-    place."""
+    waits for chunk ci-1's copy here, in `chunk(ci)`, before it launches
+    chunk ci+1, which reuses that buffer. The loop's boundaries read
+    nothing back but the keyframes' queue count (``record="full"``), so
+    this wait is what keeps the host at most a chunk ahead of the card on
+    this path. CPU tensors need no copy: the records are read in place."""
 
     def __init__(self, ring, steps_per_push, consumer, device, compress):
         self.ring, self.spp, self.consumer = ring, steps_per_push, consumer

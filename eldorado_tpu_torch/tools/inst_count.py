@@ -361,8 +361,8 @@ def count_k2(carry, n_players, player_xy, req, nr, end, idx=None) -> dict:
     pattern = f"fused_reset_kernelILb{int(idx is not None)}E"
     return counter("reset_kernel.cu", pattern)(
         -(-q // envs), 32 * envs, 0,
-        [carry if idx is None else out, out, idx, n_players, player_xy, req,
-         nr, end, carry.shape[1], q])
+        [carry if idx is None else out, out, idx, None, n_players,
+         player_xy, req, nr, end, carry.shape[1], q])
 
 
 def count_k2_work(carry, n_players, player_xy, req, nr, end, idx) -> dict:
@@ -402,7 +402,7 @@ def count_k3(rng, n_pieces, difficulty, n_players, idx) -> dict:
     pattern = f"generate_map_kernelILb{int(shape['ovl_shared'])}E"
     return counter("mapgen.cu", pattern)(
         shape["blocks"], shape["threads"], shape["smem_bytes"],
-        _k3_args(rng, n_pieces, difficulty, n_players, idx))
+        _k3_args(rng, n_pieces, difficulty, n_players, idx) + [None])
 
 
 def count_k3_work(rng, n_pieces, difficulty, n_players, idx) -> dict:

@@ -8,8 +8,11 @@ launch) and its sampler is K1-sample (`ops.step_kernel.sample`; VecEnv's
 reads the masks from the carry, `ops.step_kernel.sample_carry`). Every
 reset runs K3 (map generation and its prelude, `core.mapgen.launch`) then
 K2 (`ops.step_kernel.fused_reset`), both on the batch's own rows and
-columns. The device of the input tensors decides where everything runs:
-CUDA tensors take the kernels, CPU tensors the kernels' plain versions.
+columns; self-play's chunk boundaries choose and settle their queues on
+the card around them (`ops.queue`: select and settle), so that the host
+reads nothing between chunks. The device of the input tensors decides
+where everything runs: CUDA tensors take the kernels, CPU tensors the
+kernels' plain versions.
 
 Auto-reset follows vec_cog_env::step_single
 (include/vec_environment.h:53-61): a done env resets with the same
@@ -21,9 +24,11 @@ from __future__ import annotations
 import torch
 
 from .core import engine as E
+from .core import mapgen as MG
 from .core.cells import expand_obs
 from .devices import resolve
 from .errors import GenerateMapFailure, MapCapacityError
+from .ops import queue as Q
 from .ops import rng as R
 from .ops import step_kernel as K
 from .ops.step_kernel import (fused_reset, fused_step, sample, sample_carry,
@@ -81,29 +86,19 @@ def _q_cap(n: int) -> int:
 _MAP_FIELDS = ("map_ids", "min_xy", "map_ok", "map_overflow")
 
 
-def _reset_columns(carry, static, idx, queue_flags: bool):
+def _reset_columns(carry, static, idx):
     """cog_env::reset for the envs ``idx`` ((q,) int32, unique) of a carry,
     in place: map generation and the prelude from each env's engine state
     (K3 on the card), which write the map fields of ``static`` (a dict) at
-    those rows, then K2 on the carry's columns. On the card the queue's
-    columns go through no torch op between or around the two kernels. With
-    ``queue_flags`` every reset env records the whole queue's ok /
-    overflow outcome, as the JAX package's reset queue does
-    (vec.py:_apply_q); otherwise each env records its own. Returns the
-    queue's (ok, overflow) as device bools. Span ``ed.reset``."""
+    those rows, each env its own map flags, then K2 on the carry's
+    columns. On the card the queue's columns go through no torch op
+    between or around the two kernels. Span ``ed.reset``."""
     with span("ed.reset"):
         n_players = static["n_players"]
         pxy, (req, nr, end) = E.reset_map_prelude_rows(
             carry[_OFF["rng"]], static["n_pieces"], static["difficulty"],
             n_players, idx, tuple(static[f] for f in _MAP_FIELDS))
         fused_reset(carry, n_players, pxy, req, nr, end, idx=idx)
-        rows = idx.long()
-        ok = static["map_ok"][rows].all()
-        over = static["map_overflow"][rows].any()
-        if queue_flags:
-            static["map_ok"][rows] = ok
-            static["map_overflow"][rows] = over
-        return ok, over
 
 
 def _keyframe(idx, ok, over, static, carry, q_cap):
@@ -146,7 +141,7 @@ def _merge(static, carry) -> E.EnvState:
 def _reset_all(states: E.EnvState) -> E.EnvState:
     static, carry = _split(states)
     idx = torch.arange(carry.shape[1], dtype=_i32, device=carry.device)
-    _reset_columns(carry, static, idx, queue_flags=False)
+    _reset_columns(carry, static, idx)
     return _merge(static, carry)
 
 
@@ -190,7 +185,7 @@ def _step_columns(carry, static, actions):
             n = carry.shape[1]
             key = torch.where(done, torch.arange(n, device=carry.device), n)
             idx = torch.sort(key).values[:n_done].to(_i32)
-            _reset_columns(carry, static, idx, queue_flags=False)
+            _reset_columns(carry, static, idx)
         return carry, done
 
 
@@ -240,7 +235,7 @@ def reset_done_bucketed(states, done=None, check_maps=True):
     if idx.numel() == 0:
         return states, 0
     static, carry = _split(states)
-    _reset_columns(carry, static, idx, queue_flags=False)
+    _reset_columns(carry, static, idx)
     states = _merge(static, carry)
     if check_maps:
         check_map_generation(states)
@@ -313,8 +308,9 @@ def rollout_chunked(states, sampler_rngs, n_steps: int, chunk: int = 100,
     Per chunk: one K1 launch runs ``chunk`` steps (done envs dead-step);
     then a reset queue takes up to Q = min(n, 1024, max(128, n // 32))
     newly finished envs, lowest index first; extra finishers dead-step to
-    a later boundary. Envs still done after the last chunk are reset by a
-    final sweep.
+    a later boundary. The queue is chosen, sized, reset and settled on the
+    card (`_ChunkLoop`): the host reads nothing until the call's end.
+    Envs still done after the last chunk are reset by a final sweep.
 
     ``reset_mode``:
       * "sync" (default): each boundary's queue is regenerated in place
@@ -355,7 +351,7 @@ def _reset_done_columns(carry, static):
     own map flags; returns their rows ((k,) int64). One host read."""
     idx = torch.nonzero(carry[_OFF["done"]]).flatten()
     if idx.numel():
-        _reset_columns(carry, static, idx.to(_i32), queue_flags=False)
+        _reset_columns(carry, static, idx.to(_i32))
     return idx
 
 
@@ -373,11 +369,23 @@ def _rollout_chunks(states, sampler_rngs, n_chunks: int, chunk: int,
 
 class _ChunkLoop:
     """One batch's chunk loop, in the steps `_run_chunks` interleaves across
-    batches: `launch` (chunk ci's K1), `boundary` (its reset
-    queue: the sort, the count's host read, K3 then K2), `flush` (async's
-    last queue) and `sweep`. The batch is a whole `rollout_chunked` batch
-    or one shard of `parallel.runner`'s, with its own queue capacity
-    `_q_cap(n)`.
+    batches: `launch` (chunk ci's K1), `boundary` (its reset queue), `flush`
+    (async's last queue) and `sweep`. The batch is a whole
+    `rollout_chunked` batch or one shard of `parallel.runner`'s, with its
+    own queue capacity `_q_cap(n)`.
+
+    A boundary chooses, sizes, resets and settles its queue on the device
+    in stream order, and the host reads nothing back: `ops.queue.select`
+    takes the lowest-indexed done envs (not in flight), up to the capacity,
+    into the loop's queue buffer and writes their count to the device; K3
+    and K2 run at the queue's capacity, their slots past the count empty;
+    `ops.queue.settle` writes the queue's map flags and adds the queue to
+    the loop's tally (episodes, failed, overflow; K1 adds the dead steps
+    beside them), which `_end_chunks` reads once. The loop allocates its
+    buffers and checks every launch's tensors once, here; the launches at
+    the boundaries go unchecked (CPU tensors take the plain versions). K1
+    writes out of place into two carries and two engine rows taken in
+    turn.
 
     With ``record`` ("compact" or "full") K1 writes each chunk's records
     into one of two (chunk, n, W) device buffers, alternating, and
@@ -385,79 +393,144 @@ class _ChunkLoop:
     before that boundary's reset queue (so the caller may read chunk ci-1's
     buffer while the card runs chunk ci). With ``keyframes`` every
     boundary that reset envs gives ``(ci, keyframe)`` (`_keyframe`) in
-    ``frames``. With ``deferred`` (the async reset mode) each boundary's
-    queue is taken from the done envs not in flight and reset at the next
-    boundary, and the last one after the last chunk (the JAX package's
+    ``frames``, for which it reads the queue's count back. With
+    ``deferred`` (the async reset mode) each boundary's queue is taken
+    from the done envs not in flight and reset at the next boundary, and
+    the last one after the last chunk (the JAX package's
     _rollout_chunked_q with reset_mode="async", vec.py:806-852).
 
-    Spans: ``ed.rollout.begin`` (the set-up, whole) and
-    ``ed.queue.count_read`` (a boundary's host read)."""
+    Counters (the launch counters' kind, over every loop of the process):
+    ``_ChunkLoop.boundaries`` and ``_ChunkLoop.boundary_reads``, the host
+    reads among them. Spans: ``ed.rollout.begin`` (the set-up, whole) and
+    ``ed.reset`` (a queue's K3, K2 and settle)."""
+
+    boundaries = 0
+    boundary_reads = 0
 
     def __init__(self, states, sampler_rngs, chunk: int, mask_src: str,
                  exact: bool, record=None, on_chunk=None,
                  keyframes: bool = False, deferred: bool = False):
         with span("ed.rollout.begin"):
-            self.dev = dev = states.rng.device
-            self.n = n = states.rng.shape[0]
-            self.q_cap = _q_cap(n)
+            dev = states.rng.device
+            self.cuda = dev.type == "cuda"
+            n = states.rng.shape[0]
+            self.q_cap = q_cap = _q_cap(n)
             self.chunk, self.mask_src, self.exact = chunk, mask_src, exact
             self.record, self.on_chunk, self.keyframes = record, on_chunk, \
                 keyframes
-            self.static, self.carry = _split(states)
+            self.static, carry = _split(states)
+            self.maps = tuple(self.static[f] for f in _MAP_FIELDS)
             self.srng = sampler_rngs.to(_i32).contiguous()
-            self.dead = torch.zeros(1, dtype=torch.int64, device=dev)
-            self.episodes = 0
-            self.failed = torch.zeros((), dtype=torch.bool, device=dev)
-            self.overflow = torch.zeros((), dtype=torch.bool, device=dev)
-            self.env_ids = torch.arange(n, device=dev)
+            # (carry, sampler engines, its done row, its rng row) x 2: K1
+            # reads one and writes the other; the caller's engines are only
+            # read
+            self.slots = [(c, torch.empty_like(self.srng), c[_OFF["done"]],
+                           c[_OFF["rng"]])
+                          for c in (carry, torch.empty_like(carry))]
+            self.cur = 0
+            self.act = torch.empty((n, 5), dtype=_i32, device=dev)
+            # episodes, failed, overflow (settle's), dead steps (K1's)
+            self.tally = torch.zeros(4, dtype=torch.int64, device=dev)
+            self.settled, self.dead = self.tally[:3], self.tally[3:]
             self.bufs = ([torch.empty((chunk, n, K.RECORD_WORDS[record]),
                                       dtype=_i32, device=dev)
                           for _ in range(2)] if record else None)
             self.frames = []
-            # the queued envs awaiting their deferred reset (sync mode
-            # resets every queue at the boundary that took it)
+            # a queue: idx (q_cap,) and its count (1,), one buffer; async
+            # holds two, the queue taken and the queue pending its reset
+            bufs = torch.empty((2 if deferred else 1, q_cap + 1), dtype=_i32,
+                               device=dev)
+            self.queues = [(b[:q_cap], b[q_cap:]) for b in bufs]
+            self.prelude = E._prelude_out(q_cap, dev)
             self.inflight = torch.zeros(n, dtype=torch.bool, device=dev) \
                 if deferred else None
             self.pending = None
+            self._check()
 
-    def _reset(self, ci, idx):
-        ok, over = _reset_columns(self.carry, self.static, idx,
-                                  queue_flags=True)
-        if self.keyframes:
-            self.frames.append((ci, _keyframe(idx, ok, over, self.static,
-                                              self.carry, self.q_cap)))
-        self.failed |= ~ok
-        self.overflow |= over
+    def _check(self):
+        """Every launch's checks, once."""
+        st = self.static
+        carry, srng, done, rng = self.slots[0]
+        K.check_fused_step(carry, srng, *_params(st), self.chunk,
+                           self.mask_src, self.dead, record=self.record,
+                           records=self.bufs[0] if self.record else None)
+        for idx, count in self.queues:
+            Q.check(done, self.inflight, idx, count, st["map_ok"],
+                    st["map_overflow"], self.settled)
+            K.check_fused_reset(carry, st["n_players"], *self.prelude, idx,
+                                count)
+            if self.cuda:
+                MG.check_launch(rng, st["n_pieces"], st["difficulty"],
+                                self.maps, idx, n_players=st["n_players"],
+                                prelude=self.prelude, count=count)
+
+    @property
+    def carry(self):
+        return self.slots[self.cur][0]
 
     def launch(self, ci):
         recs = self.bufs[ci % 2] if self.record else None
-        self.carry, self.srng, _ = fused_step(
-            self.carry, self.srng, *_params(self.static), self.chunk,
-            self.mask_src, gate_dead=self.exact, dead=self.dead,
-            record=self.record, records=recs)
+        carry, dst = self.carry, self.slots[1 - self.cur]
+        if self.cuda:
+            K.launch_fused_step(carry, self.srng, *_params(self.static),
+                                self.chunk, self.mask_src, self.exact,
+                                self.dead, self.record, recs, dst[0], dst[1],
+                                self.act)
+        else:
+            out, srng, _ = K.fused_step_plain(
+                carry, self.srng, *_params(self.static), self.chunk,
+                self.mask_src, self.exact, self.dead, record=self.record,
+                records=recs)
+            dst[0].copy_(out)
+            dst[1].copy_(srng)
+        self.cur, self.srng = 1 - self.cur, dst[1]
         if self.on_chunk is not None:
             self.on_chunk(ci, recs)
 
     def boundary(self, ci):
-        n = self.n
-        done = self.carry[_OFF["done"]] != 0
+        _ChunkLoop.boundaries += 1
+        queue = self.queues[ci % len(self.queues)]
+        done = self.slots[self.cur][2]
+        if self.cuda:
+            Q.launch_select(done, self.inflight, *queue)
+        else:
+            Q.select_plain(done, self.inflight, *queue)
         if self.inflight is not None:
-            done &= ~self.inflight
-        key = torch.where(done, self.env_ids, n)
-        idx = torch.sort(key).values[:self.q_cap].to(_i32)
-        with span("ed.queue.count_read"):
-            count = int((idx < n).sum())
-        queue = idx[:count] if count else None
-        if self.inflight is not None:
-            if self.pending is not None:
-                self._reset(ci, self.pending)
-                self.inflight[self.pending.long()] = False
-            if queue is not None:
-                self.inflight[queue.long()] = True
-            queue, self.pending = None, queue
+            queue, self.pending = self.pending, queue
         if queue is not None:
             self._reset(ci, queue)
-        self.episodes += count
+
+    def _reset(self, ci, queue):
+        """A queue's reset in stream order: K3, K2 at the queue's capacity
+        with its device count, then settle. Span ``ed.reset``."""
+        idx, count = queue
+        carry, _, _, rng = self.slots[self.cur]
+        st, pre = self.static, self.prelude
+        with span("ed.reset"):
+            if self.cuda:
+                MG.launch_generate_map(
+                    rng, st["n_pieces"], st["difficulty"], self.maps, idx,
+                    n_players=st["n_players"], prelude=pre, count=count)
+                K.launch_fused_reset(carry, carry, st["n_players"], *pre,
+                                     idx, count)
+                Q.launch_settle(idx, count, st["map_ok"], st["map_overflow"],
+                                self.inflight, self.settled)
+            else:
+                E.reset_map_prelude_rows_plain(
+                    rng, st["n_pieces"], st["difficulty"], st["n_players"],
+                    idx, self.maps, count, pre)
+                K.fused_reset_plain(carry, st["n_players"], *pre, idx, count)
+                Q.settle_plain(idx, count, st["map_ok"], st["map_overflow"],
+                               self.inflight, self.settled)
+        if self.keyframes:
+            _ChunkLoop.boundary_reads += 1
+            k = int(count)
+            if k:
+                rows = idx[:k]
+                self.frames.append((ci, _keyframe(
+                    rows, st["map_ok"][rows.long()].all(),
+                    st["map_overflow"][rows.long()].any(), st, carry,
+                    self.q_cap)))
 
     def flush(self, n_chunks):
         if self.pending is not None:
@@ -472,10 +545,10 @@ class _ChunkLoop:
 
 def _run_chunks(loops, n_chunks: int, total=None):
     """Drive ``loops`` (`_ChunkLoop`s, each on its own device or sharing
-    one) through ``n_chunks`` chunks: every loop's K1 launch of a chunk
-    comes before any loop's boundary, whose count is a host read, so the
-    loops' devices run their chunks together. Then async's last queues, the
-    queued resets' map failures (over every loop, MapCapacityError before
+    one) through ``n_chunks`` chunks: every loop's K1 launch of a chunk,
+    then every loop's boundary, none of which reads the device. Then
+    async's last queues, the loops' tallies (one read each), the queued
+    resets' map failures (over every loop, MapCapacityError before
     GenerateMapFailure, as the JAX package's sharded runner orders them),
     the sweeps, and their map failures. ``total`` sums a list of ints over
     the processes of a group (`parallel.bootstrap.total`); none: this
@@ -495,12 +568,14 @@ def _run_chunks(loops, n_chunks: int, total=None):
 
 
 def _end_chunks(loops, n_chunks: int, total):
-    """`_run_chunks` after the last boundary: async's last queues, the map
-    failures, the sweeps and the merges."""
+    """`_run_chunks` after the last boundary: async's last queues, the
+    tallies, the map failures, the sweeps and the merges."""
     for loop in loops:
         loop.flush(n_chunks)
-    overflow, failed = total([sum(int(lp.overflow) for lp in loops),
-                              sum(int(lp.failed) for lp in loops)])
+    # episodes, failed, overflow, dead steps: one read a loop
+    tallies = [loop.tally.tolist() for loop in loops]
+    overflow, failed = total([sum(t[2] for t in tallies),
+                              sum(t[1] for t in tallies)])
     if overflow:
         raise MapCapacityError(
             "queued reset: map generation overflowed a fixed capacity")
@@ -509,8 +584,8 @@ def _end_chunks(loops, n_chunks: int, total):
             "queued reset: map generation failed > MAX_FAILURES times")
     swept = [loop.sweep() for loop in loops]
     episodes, dead, overflow, failed = total([
-        sum(lp.episodes + left for lp, (_, left) in zip(loops, swept)),
-        sum(int(lp.dead) for lp in loops),
+        sum(t[0] + left for t, (_, left) in zip(tallies, swept)),
+        sum(t[3] for t in tallies),
         sum(int(left > 0 and bool(st.map_overflow.any()))
             for st, left in swept),
         sum(int(left > 0 and not bool(st.map_ok.all()))

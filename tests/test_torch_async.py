@@ -33,21 +33,23 @@ _i32 = torch.int32
 
 
 class Queues:
-    """Records the envs of every queued reset (`vec._reset_columns` with
-    ``queue_flags``) while it is entered; the final sweep is not one."""
+    """Records the envs of every queued reset that was not empty (the
+    chunk loop's `vec._ChunkLoop._reset`, the first ``count`` slots of its
+    queue) while it is entered; the final sweep is not one."""
 
     def __enter__(self):
-        self.seen, self._orig = [], vec._reset_columns
+        self.seen, self._orig = [], vec._ChunkLoop._reset
 
-        def spy(carry, static, idx, queue_flags):
-            if queue_flags:
-                self.seen.append(idx.tolist())
-            return self._orig(carry, static, idx, queue_flags)
-        vec._reset_columns = spy
+        def spy(loop, ci, queue):
+            idx, count = queue
+            if int(count):
+                self.seen.append(idx[:int(count)].tolist())
+            return self._orig(loop, ci, queue)
+        vec._ChunkLoop._reset = spy
         return self.seen
 
     def __exit__(self, *exc):
-        vec._reset_columns = self._orig
+        vec._ChunkLoop._reset = self._orig
 
 
 def check_against_jax(exact: bool):
@@ -101,29 +103,44 @@ def test_queue_overflow_defers_the_rest():
 def test_deferred_reset_equals_immediate():
     """A finished env's reset one chunk late, after K1 has dead-stepped
     it through another chunk, writes the values its reset at once does,
-    in every field of its column and its static rows."""
+    in every field of its column and its static rows, and settles the
+    same tally: the async chunk loop's queue (`vec._ChunkLoop`: select,
+    then K3, K2 and settle with the queue's count, on CPU tensors their
+    plain versions)."""
     n = 8
     s = et.vec_reset(5, n, PLAYERS, PIECES, 0, 20, device="cpu")
     static, carry = vec._split(s)
     srng = et.sampler_init(11, n, device="cpu")
-    par = lambda st: (st["map_ids"], st["min_xy"], st["n_players"],
-                      st["max_steps"])
     for _ in range(30):
-        carry, srng, _ = fused_step(carry, srng, *par(static), 10)
+        carry, srng, _ = fused_step(carry, srng, *vec._params(static), 10)
         done = carry[vec._OFF["done"]] != 0
         if bool(done.any()) and not bool(done.all()):
             break
-    idx = torch.nonzero(done).flatten().to(_i32)
-    assert 0 < idx.numel() < n
-    now = ({f: t.clone() for f, t in static.items()}, carry.clone())
-    vec._reset_columns(now[1], now[0], idx, queue_flags=True)
-    late_carry, _, _ = fused_step(carry.clone(), srng, *par(static), 10)
-    assert torch.equal(late_carry[:, idx.long()], carry[:, idx.long()])
-    vec._reset_columns(late_carry, static, idx, queue_flags=True)
-    rows = idx.long()
-    assert torch.equal(late_carry[:, rows], now[1][:, rows])
+    rows = torch.nonzero(done).flatten()
+    assert 0 < rows.numel() < n
+    ended = vec._merge(static, carry)
+
+    def queued():
+        """A loop whose first boundary queued the done envs."""
+        loop = vec._ChunkLoop(ended, srng, 10, "storage", False,
+                              deferred=True)
+        loop.boundary(0)
+        idx, count = loop.pending
+        assert int(count) == rows.numel()
+        assert torch.equal(idx[:rows.numel()].long(), rows)
+        return loop
+    now = queued()
+    now._reset(0, now.pending)
+    late = queued()
+    before = late.carry.clone()
+    late.launch(1)
+    assert torch.equal(late.carry[:, rows], before[:, rows])
+    late.boundary(1)   # resets the queue pending since boundary 0
+    assert torch.equal(late.carry[:, rows], now.carry[:, rows])
     for f in static:
-        assert torch.equal(static[f][rows], now[0][f][rows]), f
+        assert torch.equal(late.static[f][rows], now.static[f][rows]), f
+    assert torch.equal(late.tally[:3], now.tally[:3])
+    assert not bool(late.inflight[rows].any())
 
 
 def test_async_without_finishers_equals_sync():

@@ -13,8 +13,13 @@ compat.vec CUDA against CPU); rollout_chunked(reset_mode="async")
 CUDA against CPU; the sharded path (eldorado_tpu_torch.parallel): a
 1-card mesh equal to the unsharded path, four shards of the card equal to
 their slices' runs, make_mesh's card count, and the sharded paths CUDA
-against CPU; and the profiler's host and device clocks against each other
-through K1-act's count-read span.
+against CPU; the profiler's host and device clocks against each other
+through K1-act's count-read span; and the chunk loop's device-resident
+reset queue: select and settle (csrc/queue.cu) and K3 and K2 given a
+device count against their plain versions, the loop CUDA against CPU where
+the queue overflows (sync and async, exact or not, two shards), no torch
+op and no host read between chunks, and the learner's launches as they
+were.
 
 Marked ``cuda``: skipped where torch sees no GPU. On the machine with the
 card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -822,3 +827,168 @@ def test_count_read_span_ends_after_its_kernel(dev, tmp_path):
           f"min {min(margins):.3f} us, median "
           f"{statistics.median(margins):.3f} us")
     assert min(margins) >= -2.0
+
+
+# (n, q_cap, share of envs done): more than q_cap done, none, all, the
+# main path's queue
+SELECT_CASES = [(160, 128, 0.9), (4096, 128, 0.03), (4096, 128, 0.0),
+                (4096, 128, 1.0), (33, 33, 0.5), (20000, 625, 0.05)]
+
+
+@pytest.mark.parametrize("n,q_cap,share", SELECT_CASES)
+@pytest.mark.parametrize("deferred", [False, True])
+def test_queue_select_equals_plain(dev, n, q_cap, share, deferred):
+    """The select kernel (csrc/queue.cu) == its plain version: the queue,
+    its count and the in-flight flags, bit for bit."""
+    from eldorado_tpu_torch.ops import queue as Q
+    g = np.random.default_rng(n + q_cap)
+    done = torch.as_tensor(g.random(n) < share).to(torch.int32)
+    inflight = torch.as_tensor(g.random(n) < 0.3) if deferred else None
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        fl = None if inflight is None else inflight.to(d, copy=True)
+        idx = torch.full((q_cap,), -7, dtype=torch.int32, device=d)
+        count = torch.full((1,), -7, dtype=torch.int32, device=d)
+        Q.select(done.to(d), fl, idx, count)
+        outs.append([t.cpu() for t in (idx, count)]
+                    + ([] if fl is None else [fl.cpu()]))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", [0, 1, 77, 128])
+def test_queue_k3_k2_settle_with_a_count_equal_plain(dev, k):
+    """K3, K2 and settle on a 128-slot queue whose count lies in device
+    memory (the chunk loop's boundary) == their plain versions: the maps,
+    the carry, the flags, the tally and the in-flight flags."""
+    from eldorado_tpu_torch import vec as V
+    from eldorado_tpu_torch.ops import queue as Q
+    n = 512
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        s = et.vec_reset(9, n, 4, 3, 0, 100, device=d)
+        static, carry = V._split(s)
+        carry, _, _ = K.fused_step(carry, et.sampler_init(4, n, device=d),
+                                   *V._params(static), 60)
+        idx = torch.arange(1, n, 3, dtype=torch.int32, device=d)[:128]
+        count = torch.tensor([k], dtype=torch.int32, device=d)
+        inflight = torch.zeros(n, dtype=torch.bool, device=d)
+        inflight[idx.long()] = True
+        tally = torch.zeros(3, dtype=torch.int64, device=d)
+        maps = tuple(static[f] for f in V._MAP_FIELDS)
+        pre = TE._prelude_out(128, d)
+        k3 = (carry[V._OFF["rng"]], static["n_pieces"], static["difficulty"])
+        if d.type == "cuda":   # the loop's checks, then its raw launches
+            MG.check_launch(*k3, maps, idx, n_players=static["n_players"],
+                            prelude=pre, count=count)
+            K.check_fused_reset(carry, static["n_players"], *pre, idx, count)
+            MG.launch_generate_map(*k3, maps, idx,
+                                   n_players=static["n_players"],
+                                   prelude=pre, count=count)
+            K.launch_fused_reset(carry, carry, static["n_players"], *pre,
+                                 idx, count)
+        else:
+            TE.reset_map_prelude_rows_plain(*k3, static["n_players"], idx,
+                                            maps, count, pre)
+            K.fused_reset_plain(carry, static["n_players"], *pre, idx, count)
+        Q.settle(idx, count, static["map_ok"], static["map_overflow"],
+                 inflight, tally)
+        outs.append([carry, *maps, tally, inflight])
+    for a, b in zip(*outs):
+        assert torch.equal(a.cpu(), b)
+
+
+QUEUE_RUNS = [("sync", False), ("sync", True), ("async", False),
+              ("async", True)]
+
+
+@pytest.mark.parametrize("mode,exact", QUEUE_RUNS)
+def test_device_queue_rollout_equals_cpu(dev, mode, exact):
+    """rollout_chunked with the device-resident queue == the plain path,
+    bit for bit, at 160 envs of one-turn games in chunks of 8: the queue
+    overflows at the first boundary (test_torch_queue_overflow.py's
+    setting). Every field, srng, episodes and dead steps; no boundary
+    reads the card."""
+    from eldorado_tpu_torch import vec as V
+    outs = []
+    reads = V._ChunkLoop.boundary_reads
+    for d in (dev, torch.device("cpu")):
+        outs.append(et.rollout_chunked(
+            et.vec_reset(5, 160, 2, 1, 0, 1, device=d),
+            et.sampler_init(11, 160, device=d), 24, 8, exact=exact,
+            reset_mode=mode))
+    assert V._ChunkLoop.boundary_reads == reads
+    (a, ra, *ca), (b, rb, *cb) = outs
+    _same(b, a)
+    assert torch.equal(ra.cpu(), rb) and ca == cb and ca[0] > 128
+
+
+def test_device_queue_two_shards_equal_cpu(dev):
+    """`parallel.runner.sharded_kernel_rollout` on two shards of the card
+    (80 envs each, so each queue overflows) == the same on the CPU."""
+    from eldorado_tpu_torch.parallel import mesh as M, runner as R
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        outs.append(R.sharded_kernel_rollout(
+            M.make_mesh(devices=[d] * 2),
+            et.vec_reset(5, 160, 2, 1, 0, 1, device=d),
+            et.sampler_init(11, 160, device=d), 24, 8, exact=True))
+    (a, ra, *ca), (b, rb, *cb) = outs
+    for x, y in zip(a, b):
+        _same(y, x)
+    for x, y in zip(ra, rb):
+        assert torch.equal(x.cpu(), y)
+    assert ca == cb and ca[0] > 0
+
+
+def test_boundary_runs_no_torch_op(dev, tmp_path):
+    """Between a chunked call's start and end no torch op runs on the host
+    (the profiler records none inside ``ed.rollout`` outside
+    ``ed.rollout.end``): each boundary is select, K3, K2 and settle, each
+    launched once, and no boundary reads the card."""
+    from torch.profiler import ProfilerActivity, profile
+    from eldorado_tpu_torch import vec as V
+    from eldorado_tpu_torch.ops import queue as Q
+    s = et.vec_reset(12345, 512, 4, 3, 0, 100, device=dev)
+    r = et.sampler_init(42, 512, device=dev)
+    s, r, _ = et.rollout_chunked(s, r, 160, 16)   # built and warm
+    before = (Q.select.launches, MG.generate_map.launches,
+              K.fused_reset.launches, Q.settle.launches,
+              V._ChunkLoop.boundaries, V._ChunkLoop.boundary_reads)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, _, episodes = et.rollout_chunked(s, r, 320, 16)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())
+    if isinstance(events, dict):
+        events = events["traceEvents"]
+    span = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("cat") == "user_annotation"
+            and e["name"] in ("ed.rollout", "ed.rollout.end")}
+    (a, b), (c, _) = span["ed.rollout"], span["ed.rollout.end"]
+    ops = [e["name"] for e in events if e.get("cat") == "cpu_op"
+           and a <= e["ts"] < c]
+    assert ops == []
+    after = (Q.select.launches, MG.generate_map.launches,
+             K.fused_reset.launches, Q.settle.launches,
+             V._ChunkLoop.boundaries, V._ChunkLoop.boundary_reads)
+    delta = [x - y for x, y in zip(after, before)]
+    assert delta[0] == delta[3] == delta[4] == 20 and delta[5] == 0
+    assert delta[1] == delta[2] >= 20 and episodes > 0
+
+
+def test_learner_launch_counts_unchanged(dev):
+    """The learner's round keeps its host-sized queue: K1-act once a
+    round, K3 and K2 once in each round that ended games, and no select
+    or settle launch."""
+    from eldorado_tpu_torch.ops import queue as Q
+    env = et.VecEnv(256, device=dev)
+    env.reset(seed=21, n_players=2, n_pieces=1, max_steps=6)
+    before = (K.step_actions.launches, MG.generate_map.launches,
+              K.fused_reset.launches, Q.select.launches, Q.settle.launches)
+    resets = sum(bool(env.step(env.sample()).any()) for _ in range(40))
+    after = (K.step_actions.launches, MG.generate_map.launches,
+             K.fused_reset.launches, Q.select.launches, Q.settle.launches)
+    assert [x - y for x, y in zip(after, before)] == [40, resets, resets,
+                                                      0, 0]
+    assert resets > 0

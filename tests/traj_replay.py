@@ -168,8 +168,7 @@ def replay(names, steps: int, device) -> list:
         dones[t] = carry[_OFF["done"]] != 0
         done = torch.nonzero(dones[t]).flatten()
         if done.numel():
-            vec._reset_columns(carry, static, done.to(torch.int32),
-                               queue_flags=False)
+            vec._reset_columns(carry, static, done.to(torch.int32))
             for j in done.tolist():
                 maps[j][t] = static["map_ids"][j].clone()
         rows[t + 1] = carry
