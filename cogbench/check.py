@@ -18,7 +18,9 @@ maps and reset state it made are judged, and envs at random. Every env's
 sampler engine is checked too: over the segment it must have drawn what
 its steps draw (five draws a step, and a rejected draw now and then), and
 in exact self-play the steps the engines mark must add up to the live
-steps the system counts.
+steps the system counts. Every stage of a sampled env is also held to the
+env's own game as the configuration gives it (`spec.env_params`: its
+level, where the configuration has ``levels``).
 
 The one number compared is ``mismatches``: the sampled envs that differ
 from the reference at any stage, plus the envs whose engine is off its

@@ -117,15 +117,16 @@ def run(ctx) -> dict:
     jobs = []
     for k, i in enumerate(seed_idx):
         start = ctx.from_seed(i)
-        jobs.append({"kind": "reset", **start,
+        jobs.append({"kind": "reset", "env": i, **start,
                      "want": stages["reset"][0][k],
                      "want_sampler": int(stages["reset"][1][k])})
-        jobs.append({"kind": "play", "start": start,
+        jobs.append({"kind": "play", "env": i,
+                     "params": start["params"], "start": start,
                      "steps": mix["warmup_rounds"], "exact_steps": True,
                      "want": stages["warm"][0][k],
                      "want_sampler": int(stages["warm"][1][k])})
-    for k in range(len(seg_idx)):
-        jobs.append({"kind": "play",
+    for k, i in enumerate(seg_idx):
+        jobs.append({"kind": "play", "env": i, "params": ctx.params(i),
                      "start": {"fields": stages["in"][0][k],
                                "sampler": int(stages["in"][1][k])},
                      "steps": check_rounds, "exact_steps": True,

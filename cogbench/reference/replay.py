@@ -9,10 +9,11 @@ ended env frozen, drawing nothing, until its reset; so its trajectory
 without those dead steps is this one, and its sampler engine marks how
 far it went.
 
-* ``{"kind": "reset", "seed", "sampler_seed", "params", "want"}``: the
-  reference's reset from the seed against the system's state ``want``.
-* ``{"kind": "play", "start", "steps", "exact_steps", "want",
-  "want_sampler"}``: from ``start`` (``{"seed", "sampler_seed",
+* ``{"kind": "reset", "env", "seed", "sampler_seed", "params",
+  "want"}``: the reference's reset from the seed against the system's
+  state ``want``.
+* ``{"kind": "play", "env", "params", "start", "steps", "exact_steps",
+  "want", "want_sampler"}``: from ``start`` (``{"seed", "sampler_seed",
   "params"}``: a reset from the seed; or ``{"fields", "sampler"}``: an
   env of the system), play until the sampler engine reads
   ``want_sampler``, at least one step and at most ``steps``; with
@@ -21,6 +22,13 @@ far it went.
   not ``want`` but the control's: the reference put in the system's place
   from the same start, its sampler reducing each draw modulo the head's
   width (`ModuloSampler`) instead of libstdc++'s downscaling.
+
+``env`` is the env's index in the batch and ``params`` its own game as
+the configuration gives it (its ``n_players``, ``n_pieces``,
+``difficulty`` and ``max_steps``). Every stage of the system's that a job
+reads, ``want`` and a start's ``fields``, must hold that game: a replay
+from the system's own fields would carry a wrong game along unseen, so a
+stage that differs fails the job as ``"level"``.
 
 `run` returns ``{"ok", "steps", "why"}``: ``why`` names what differed.
 """
@@ -59,6 +67,13 @@ def _step(env, sampler):
         env.reset()
 
 
+def _holds(params: dict, *stages) -> bool:
+    """Whether each of the system's ``stages`` (one env's fields) holds
+    the game ``params``."""
+    return all(int(np.asarray(f[k])) == int(v)
+               for f in stages for k, v in params.items())
+
+
 def run(job: dict) -> dict:
     try:
         return _run(job)
@@ -68,14 +83,17 @@ def run(job: dict) -> dict:
 
 
 def _run(job: dict) -> dict:
+    start = job.get("start", {})
+    level = [] if _holds(job["params"], job["want"],
+                         *([start["fields"]] if "fields" in start else [])) \
+        else ["level"]
     if job["kind"] == "reset":
         env, sampler = _from_seed(job["seed"], job["sampler_seed"],
                                   job["params"])
-        bad = S.differ(S.extract(env), S.system_view(job["want"]))
+        bad = level + S.differ(S.extract(env), S.system_view(job["want"]))
         if int(job["want_sampler"]) & 0xFFFFFFFF != sampler.rng.state:
             bad.append("sampler")
         return {"ok": not bad, "steps": 0, "why": bad}
-    start = job["start"]
     if "fields" in start:
         env, sampler = S.load(start["fields"], start["sampler"])
     else:
@@ -105,6 +123,6 @@ def _run(job: dict) -> dict:
                 break
     if not reached:
         return {"ok": False, "steps": steps,
-                "why": ["sampler stream not reached"]}
-    bad = S.differ(S.extract(env), want)
+                "why": level + ["sampler stream not reached"]}
+    bad = level + S.differ(S.extract(env), want)
     return {"ok": not bad, "steps": steps, "why": bad}

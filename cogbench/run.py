@@ -7,8 +7,10 @@ from the root of a checkout. The cell (an entry of ``workloads`` in
 BENCHMARK.json) names a configuration and a traffic mix; the mix names the
 driver in ``drivers/`` that runs it on the system under test,
 ``eldorado_tpu_torch``. ``--seed`` makes every input: env i is seeded with
-seed + i and its sampler with seed + 0x9E3779B9 + i (each modulo 2**32);
-the system receives nothing else. A run: set-up (import, library load and
+seed + i and its sampler with seed + 0x9E3779B9 + i (each modulo 2**32),
+and plays its game from the configuration (`spec.env_params`: a
+configuration with ``levels`` gives each env its own); the system receives
+nothing else. A run: set-up (import, library load and
 kernel build, the reset at the cell's shapes, the mix's warm-up), the
 window of ``--seconds``, with ``--trace 1`` a profiled stretch of the same
 work after it, then the check of the window's outputs by the reference
@@ -20,7 +22,9 @@ number compared and its limit, which also close standard error.
 
 Without a CUDA device, or with fewer than the cell asks for, it prints no
 result and exits with 2. ``--control <name>`` runs the cell's control in
-the system's place (see the drivers) and is for measuring the check.
+the system's place (see the drivers) and is for measuring the check; the
+control ``level0``, for a configuration with ``levels``, resets the whole
+batch at the first level while the check holds each env to its own.
 """
 from __future__ import annotations
 
@@ -34,6 +38,8 @@ import time
 _T_IMPORT = time.perf_counter()
 FORBIDDEN = ("jax", "jaxlib", "flax", "eldorado_tpu")
 SEED_GAP = 0x9E3779B9
+# controls of every driver's cells (a driver names its own in CONTROLS)
+CONTROLS = ("level0",)
 
 
 def process_age() -> float:
@@ -55,13 +61,21 @@ def forbidden_modules() -> list:
 
 class Context:
     """What a driver gets: the system, the cell's data, the seeds and the
-    clock of set-up."""
+    clock of set-up. ``config``'s four game keys are the batch's arguments
+    (`spec.batch_params`), which the drivers hand to the system's resets
+    as they are; `params` is env i's own game, which the check holds it
+    to."""
 
     def __init__(self, torch, et, config, mix, seed, seconds, trace, device,
                  control):
         import numpy as np
+        from cogbench import spec
         self.torch, self.et = torch, et
-        self.config, self.mix = config, mix
+        self.game = config
+        if control == "level0":
+            config = {**config, "levels": config["levels"][:1]}
+        self.config = {**config, **spec.batch_params(config)}
+        self.mix = mix
         self.seed, self.seconds, self.trace = seed, seconds, trace
         self.device, self.control = device, control
         self.cuda = device.startswith("cuda")
@@ -72,8 +86,6 @@ class Context:
         # window, and from their seeds through the reset and warm-up
         self.sample = mix["check_envs"]
         self.sample_from_seed = mix["check_envs_from_seed"]
-        self.params = {k: config[k] for k in ("n_players", "n_pieces",
-                                              "difficulty", "max_steps")}
         self.setup_s = None
         self.memory_peak_bytes = 0
 
@@ -93,11 +105,16 @@ class Context:
             self.memory_peak_bytes = int(
                 self.torch.cuda.max_memory_allocated())
 
+    def params(self, i: int) -> dict:
+        """Env ``i``'s game, as the configuration gives it."""
+        from cogbench import spec
+        return spec.env_params(self.game, i)
+
     def from_seed(self, i: int) -> dict:
         """The reference's start for env ``i``: its seeds and parameters."""
         return {"seed": (self.env_base + int(i)) & 0xFFFFFFFF,
                 "sampler_seed": (self.sampler_base + int(i)) & 0xFFFFFFFF,
-                "params": self.params}
+                "params": self.params(i)}
 
 
 class Run:
@@ -136,9 +153,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     config = {**config, **overrides.get("config", {})}
     mix = {**mix, **overrides.get("mix", {})}
     drv = spec.driver(mix["driver"], here)
-    if control is not None and control not in drv.CONTROLS:
+    if control is not None and control not in drv.CONTROLS + CONTROLS:
         raise SystemExit(f"control {control!r} is not one of "
-                         f"{drv.CONTROLS} for this cell's driver")
+                         f"{drv.CONTROLS + CONTROLS} for this cell")
+    if control == "level0" and not config.get("levels"):
+        raise SystemExit("the control level0 needs a configuration with "
+                         "levels")
 
     import torch
     torch.set_num_threads(1)
@@ -184,7 +204,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
                                       "limit": C.LIMIT}}
     result["_detail"] = {
         "jobs": len(results), "jobs_differ": len(differ),
-        "why": [(j["kind"], r["why"]) for j, r in differ][:8],
+        "why": [(j["kind"], j["env"], r["why"]) for j, r in differ][:8],
         **out.get("notes", {}), "window_s": out["window_s"]}
     return result
 

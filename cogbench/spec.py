@@ -5,7 +5,11 @@ configurations, traffic mixes and metrics; everything that belongs to one
 of them sits in a file of its own under this folder:
 
 * a configuration: ``configs/<config>.json`` (`BENCHMARK.json` gives its
-  path as ``file``);
+  path as ``file``). Its ``n_players``, ``n_pieces``, ``difficulty`` and
+  ``max_steps`` are every env's game, unless it has ``levels``: a list of
+  objects, each setting some of those four keys, env ``i`` playing
+  ``levels[i % len(levels)]`` and a key a level leaves out taking the
+  top-level value (`env_params`, `batch_params`);
 * a traffic mix: ``traffic/<mix>.json``, whose ``driver`` names the module
   ``drivers/<driver>.py`` that runs it;
 * a per-layer metric: ``metrics/<metric>.py``, whose ``read(run)`` returns
@@ -23,6 +27,8 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+# a game's parameters, as a configuration and each of its levels name them
+GAME = ("n_players", "n_pieces", "difficulty", "max_steps")
 
 
 def load_benchmark(root: Path = ROOT) -> dict:
@@ -43,6 +49,36 @@ def config(bench: dict, name: str, root: Path = ROOT) -> dict:
         if c["name"] == name:
             return json.loads((root / c["file"]).read_text())
     raise SystemExit(f"no config {name!r} in BENCHMARK.json")
+
+
+def _levels(cfg: dict) -> list:
+    levels = cfg.get("levels") or []
+    for lv in levels:
+        if not set(lv) <= set(GAME):
+            raise SystemExit(f"config {cfg.get('name')!r}: a level sets "
+                             f"{sorted(set(lv) - set(GAME))}; a level may "
+                             f"set only {list(GAME)}")
+    return levels
+
+
+def _game(cfg: dict, level: dict) -> dict:
+    return {k: int(level.get(k, cfg[k])) for k in GAME}
+
+
+def env_params(cfg: dict, i: int) -> dict:
+    """Env ``i``'s game: its four integers of `GAME`."""
+    levels = _levels(cfg)
+    return _game(cfg, levels[int(i) % len(levels)] if levels else {})
+
+
+def batch_params(cfg: dict) -> dict:
+    """The batch's four game arguments, as the system's resets take them:
+    the configuration's value where no level sets the key, else a list of
+    every env's (``n_envs`` ints)."""
+    levels = _levels(cfg)
+    games = [_game(cfg, lv) for lv in levels]
+    return {k: [games[i % len(games)][k] for i in range(cfg["n_envs"])]
+            if any(k in lv for lv in levels) else cfg[k] for k in GAME}
 
 
 def mix(name: str, here: Path = HERE) -> dict:

@@ -15,6 +15,7 @@ import torch
 
 import eldorado_tpu_torch as et
 from cogbench.run import run_cell
+from test_cogbench_harness import LEVELS
 
 SELFPLAY = {"config": {"n_envs": 12},
             "mix": {"chunk": 16, "steps_per_call": 320, "check_envs": 6,
@@ -96,3 +97,26 @@ def test_learner_faults_fail(monkeypatch, fault):
     monkeypatch.setattr(et.VecEnv, "step",
                         _step_fault(fault, et.VecEnv.step))
     assert mismatches("learner.short-games", LEARNER) > 0
+
+
+SHORTER = {"selfplay.short-games": {"steps_per_call": 96}}
+
+
+@pytest.mark.parametrize("cell,small", [("selfplay.short-games", SELFPLAY),
+                                        ("learner.short-games", LEARNER)])
+def test_level0_control_fails_by_the_level(cell, small):
+    """A batch with levels is correct; the control ``level0``, the system
+    reset at the first level everywhere, is not. Replayed from the
+    system's own fields, its envs agree with the reference in everything
+    but their game: the envs of the other levels fail by the ``level``
+    comparison alone. No env is replayed from its seed, so that every job
+    starts from the system's own fields."""
+    ov = {"config": {**small["config"], "levels": LEVELS},
+          "mix": {**small["mix"], **SHORTER.get(cell, {}),
+                  "check_envs_from_seed": 0}}
+    assert mismatches(cell, ov) == 0
+    r = run_cell(cell, 2**31 + 101, 0.3, False, "cpu", "level0", ov,
+                 workers=0)
+    assert r["correct"] is False and r["check"]["mismatches"]["value"] > 0
+    why = r["_detail"]["why"]
+    assert why and all(w == ["level"] and env % 3 for _, env, w in why)

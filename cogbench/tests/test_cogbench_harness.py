@@ -94,10 +94,27 @@ def test_cell_resolves_by_name(cell):
         assert m["moves"] in {x["name"] for x in e2e}
 
 
-def test_added_cell_is_found_without_edits(tmp_path):
+# a curriculum batch: env i plays LEVELS[i % 3], each key a level leaves
+# out taken from the configuration's top level (levels whose maps never
+# failed in millions of generations; HARD with 4 or more pieces fails about
+# once a million, in the reference too)
+LEVELS = [{}, {"n_pieces": 8, "difficulty": 1},
+          {"n_players": 2, "n_pieces": 3, "difficulty": 2}]
+ADDED = {"uniform": {"n_players": 2, "n_pieces": 1},
+         "levels": {"n_players": 4, "n_pieces": 3, "difficulty": 0,
+                    "levels": LEVELS}}
+
+
+@pytest.mark.parametrize("game", sorted(ADDED))
+def test_added_cell_is_found_without_edits(tmp_path, monkeypatch, game):
     """A configuration, a traffic mix, a cell, a per-layer metric and the
     kernels' work counts, added as files and entries in a copy of the
-    benchmark, are found and run by the harness; no other file changes."""
+    benchmark, are found and run by the harness; no other file changes.
+    The system's reset gets the configuration's values as they are where
+    it has no levels, and each env's own where it has; the reference gets
+    every checked env's own game, and holds the system to it."""
+    import eldorado_tpu_torch as et
+    from cogbench import check as C
     shutil.copytree(ROOT / "cogbench", tmp_path / "cogbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     here = tmp_path / "cogbench"
@@ -105,39 +122,69 @@ def test_added_cell_is_found_without_edits(tmp_path):
     b = spec.load_benchmark()
     cfg = json.loads((ROOT / "cogbench/configs/cog-4p3pc-easy-t100.json")
                      .read_text())
-    cfg.update(name="cog-2p1pc-easy-t100", n_players=2, n_pieces=1)
-    (here / "configs" / "cog-2p1pc-easy-t100.json").write_text(
-        json.dumps(cfg))
+    cfg.update(name="cog-added-t100", **ADDED[game])
+    (here / "configs" / "cog-added-t100.json").write_text(json.dumps(cfg))
     (here / "traffic" / "learner-short-check.json").write_text(json.dumps(
         {**spec.mix("learner-sample-step"), "check_rounds": 30}))
     for k in ("k1act", "k2", "k3"):
         shutil.copy(here / "work" / k / "cog-4p3pc-easy-t100.json",
-                    here / "work" / k / "cog-2p1pc-easy-t100.json")
+                    here / "work" / k / "cog-added-t100.json")
     (here / "metrics" / "extra.attempted.py").write_text(
         "def read(run):\n    return 7.0\n")
-    b["configs"].append({"name": "cog-2p1pc-easy-t100", "source": "a test",
-                         "file": "cogbench/configs/cog-2p1pc-easy-t100.json",
+    b["configs"].append({"name": "cog-added-t100", "source": "a test",
+                         "file": "cogbench/configs/cog-added-t100.json",
                          "reduced": [], "why": "a test"})
-    b["workloads"].append({"name": "learner.two-players",
-                           "config": "cog-2p1pc-easy-t100",
+    b["workloads"].append({"name": "learner.added",
+                           "config": "cog-added-t100",
                            "traffic": "learner-short-check", "chips": 1,
                            "why": "a test"})
     for m in b["per_layer"] + b["end_to_end"]:
         if "learner.short-games" in m.get("workloads", []):
-            m["workloads"].append("learner.two-players")
+            m["workloads"].append("learner.added")
     b["per_layer"].append({"name": "extra.attempted", "unit": "calls",
                            "better": "higher", "source": "program_counter",
                            "layer": "learner surface: vec.VecEnv",
                            "moves": "learner_steps_per_s",
-                           "workloads": ["learner.two-players"]})
+                           "workloads": ["learner.added"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
-    r = run_cell("learner.two-players", 2**31 + 9, 0.3, True, "cpu",
-                 overrides=small("learner.short-games"), workers=0,
-                 root=tmp_path)
+    resets, jobs = [], []
+    real_reset, real_jobs = et.VecEnv.reset, C.run_jobs
+
+    def reset(self, **kw):
+        resets.append(kw)
+        return real_reset(self, **kw)
+
+    def run_jobs(js, workers):
+        jobs.extend(js)
+        return real_jobs(js, workers)
+
+    monkeypatch.setattr(et.VecEnv, "reset", reset)
+    monkeypatch.setattr(C, "run_jobs", run_jobs)
+    ov = small("learner.short-games")
+    r = run_cell("learner.added", 2**31 + 9, 0.3, True, "cpu",
+                 overrides=ov, workers=0, root=tmp_path)
     assert r["correct"]
     assert r["metrics"]["extra.attempted"]["value"] == 7.0
     assert "learner.step_us" in r["metrics"]
     assert all(p.read_bytes() == v for p, v in before.items())
+
+    n = ov["config"]["n_envs"]
+    game_of = [spec.env_params(cfg, i) for i in range(n)]
+    by_level = {k for lv in cfg.get("levels", []) for k in lv}
+    assert len(resets) == 1
+    assert {k: resets[0][k] for k in spec.GAME} == {
+        k: [g[k] for g in game_of] if k in by_level else cfg[k]
+        for k in spec.GAME}
+    if game == "levels":
+        assert resets[0]["n_pieces"][:4] == [3, 8, 3, 3]
+        assert resets[0]["max_steps"] == 100
+        assert len({j["env"] % 3 for j in jobs}) == 3
+    assert jobs
+    for j in jobs:
+        assert j["params"] == game_of[j["env"]]
+        if "fields" in j.get("start", {}):
+            assert int(j["start"]["fields"]["n_pieces"]) \
+                == game_of[j["env"]]["n_pieces"]
 
 
 @pytest.mark.parametrize("cell,trace", [("learner.short-games", True),

@@ -1,4 +1,4 @@
-"""The readers of the program's spans (``cogbench/spans.py`` and the seven
+"""The readers of the program's spans (``cogbench/spans.py`` and the six
 ``program_span`` metrics) on hand-built traces, whose values are worked out
 by hand in the comments; None where the program has no spans; and a traced
 run on the CPU that reports them."""
@@ -72,15 +72,9 @@ LEARNER = [
     span("ed.reset", 600, 650),
     span("ed.k1act.read", 700, 705),
 ]
-# a count read in whose last 7 us the card is idle
-COUNT_READ = [op(K1, 0, 50), span("ed.rollout", 0, 80),
-              span("ed.queue.count_read", 40, 57)]
-
 CASES = [
     ("queue.chunk_gap_us", SELFPLAY, 60.0),
     ("queue.call_edge_us", SELFPLAY, (20 + 150 + 15 + 30) / 2),
-    ("queue.count_read_us", SELFPLAY, (7 + 10 + 5) / 3),
-    ("queue.count_read_us", COUNT_READ, 7.0),
     ("queue.reset_idle_us", SELFPLAY, 22.0),
     ("learner.count_read_us", LEARNER, 20.0),
     ("learner.reset_host_us", LEARNER, 100 / 3),
@@ -133,7 +127,7 @@ def test_traced_cpu_run_reports_the_spans(cell):
     r = run_cell(cell, 2**31 + 5, 0.3, True, "cpu", overrides=small(cell),
                  workers=0)
     assert r["correct"]
-    want = (["queue.call_edge_us", "queue.count_read_us"]
+    want = (["queue.call_edge_us"]
             if cell.startswith("selfplay") else
             ["learner.count_read_us", "learner.reset_host_us",
              "learner.step_self_us"])
