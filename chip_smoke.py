@@ -46,10 +46,11 @@ before the final line:
    of each column in and out that earlier records used; the chunk loop's
    boundary at the main path's capacity (select against its plain
    version; K3 and K2 launched at the capacity with the queue's device
-   count against their plain versions given it; settle against its plain
-   version with a map failure and an overflow planted in the queue;
-   select and settle timed beside an empty one-block kernel, each beside
-   its bytes bound; K3 and K2 at the capacity with a count of 1, 8 and
+   count, K3 writing each slot's trips and retries, against their plain
+   versions given it; settle with K3's counters against its plain version
+   with a map failure and an overflow planted in the queue; select and
+   settle (with its counters) timed beside an empty one-block kernel,
+   each beside its bytes bound; K3 and K2 at the capacity with a count of 1, 8 and
    128 beside the launches sized to those envs);
 6. K1's cost probes on the carry phase 5 leaves: K1-null, P1 (null
    copy), P2 (op chain,
@@ -750,8 +751,8 @@ def main():
                                                        idx=idx), reps=2)
     # the chunk loop's queue kernels (csrc/queue.cu) at the main path's
     # capacity: select over a done row with 3% of the envs done (a
-    # short-game boundary's ~107), against its plain version; settle on
-    # the queue it took; each timed beside an empty one-block kernel
+    # short-game boundary's ~107), against its plain version, timed beside
+    # an empty one-block kernel; settle on the queue it took, below
     sel_done = (torch.rand(N_MAIN, generator=torch.Generator().manual_seed(
         5)) < 0.03).to(torch.int32)
     sel = [(torch.empty(Q, dtype=torch.int32, device=d),
@@ -764,10 +765,6 @@ def main():
     sel_done = sel_done.to(dev)
     ms_sel, _ = cuda_ms(lambda: QK.select(sel_done, None, *sel[0]), reps=20,
                         ahead=True)
-    sel_flags = (q_states.map_ok.clone(), q_states.map_overflow.clone())
-    sel_tally = torch.zeros(3, dtype=torch.int64, device=dev)
-    ms_settle, _ = cuda_ms(lambda: QK.settle(*sel[0], *sel_flags, None,
-                                             sel_tally), reps=20, ahead=True)
     floor_block, _ = cuda_ms(lambda: K.launch_empty(1024, dev, 1024),
                              reps=20, ahead=True)
     sel_k = int(sel[1][1])
@@ -775,15 +772,14 @@ def main():
     sel_plain = tuple(torch.empty_like(t) for t in sel[0])
     ms_plain_sel, _ = cuda_ms(lambda: QK.select_plain(sel_done, None,
                                                       *sel_plain), reps=2)
-    ms_plain_settle, _ = cuda_ms(lambda: QK.settle_plain(
-        *sel[0], *(t.clone() for t in sel_flags), None, sel_tally.clone()),
-        reps=2)
-    # the chunk loop's boundary on that queue: K3 and K2 launched at the
-    # capacity with its device count (the loop's checks, then its raw
-    # launches) against their plain versions given the count; then settle
-    # on the card against settle_plain on CPU copies, with a map failure
-    # and an overflow planted among the queued rows and envs in flight
-    # beside the queue, so that the tally's failed and overflow bits set
+    # the chunk loop's boundary on that queue, as `vec._ChunkLoop._reset`
+    # runs it: K3 and K2 launched at the capacity with its device count, K3
+    # writing each slot's trips and retries to a work buffer (the loop's
+    # checks, then its raw launches), against their plain versions given
+    # the count; then settle with K3's counters on the card against
+    # settle_plain on CPU copies, with a map failure and an overflow
+    # planted among the queued rows and envs in flight beside the queue, so
+    # that the tally's failed and overflow bits set
     q_idx, q_count = sel[0]
     q_rows = q_idx[:sel_k].long()
     np_ = q_states.n_players
@@ -792,25 +788,32 @@ def main():
         b_carry = stepped.clone()
         b_maps = [getattr(q_states, f).clone() for f in MAP_FIELDS]
         b_pre = E._prelude_out(Q, dev)
+        # slots past the count keep the fill: neither writes them
+        b_work = torch.full((Q, 2), -7, dtype=torch.int32, device=dev)
         k3 = (b_carry[rng_row], q_states.n_pieces, q_states.difficulty)
         if plain:
             E.reset_map_prelude_rows_plain(*k3, np_, q_idx, b_maps, q_count,
-                                           b_pre)
+                                           b_pre, b_work)
             K.fused_reset_plain(b_carry, np_, *b_pre, q_idx, q_count)
         else:
             MG.check_launch(*k3, b_maps, q_idx, n_players=np_, prelude=b_pre,
-                            count=q_count)
+                            count=q_count, work=b_work)
             K.check_fused_reset(b_carry, np_, *b_pre, q_idx, q_count)
             MG.launch_generate_map(*k3, b_maps, q_idx, n_players=np_,
-                                   prelude=b_pre, count=q_count)
+                                   prelude=b_pre, count=q_count, work=b_work)
             K.launch_fused_reset(b_carry, b_carry, np_, *b_pre, q_idx,
                                  q_count)
         outs.append(dict(carry_fields(b_carry), **dict(zip(MAP_FIELDS,
                                                            b_maps)),
                          **{k: t[:sel_k] for k, t in zip(
-                             ("player_xy", "req", "nr", "end"), b_pre)}))
+                             ("player_xy", "req", "nr", "end"), b_pre)},
+                         work=b_work))
     err_count = expect_equal("phase 5 (K3 and K2 with a device count)",
                              *outs)
+    q_work = outs[0]["work"]
+    if int((q_work[:sel_k] < 0).sum()) or int((q_work[sel_k:] != -7).sum()):
+        fail("phase 5: K3's work buffer was not written at the counted "
+             "slots alone")
     err_k3, err_k2 = max(err_k3, err_count), max(err_k2, err_count)
     s_ok, s_over = outs[0]["map_ok"].clone(), outs[0]["map_overflow"].clone()
     s_ok[q_rows[sel_k // 3]] = False
@@ -819,21 +822,39 @@ def main():
     s_fl[::97] = True
     s_fl[q_rows] = True
     s_tally = torch.tensor([1000, 0, 0], dtype=torch.int64, device=dev)
-    settled = [s_ok, s_over, s_fl, s_tally]
+    s_sums = torch.tensor([500, 900], dtype=torch.int64, device=dev)
+    settled = [s_ok, s_over, s_fl, s_tally, s_sums]
     want = [t.to("cpu", copy=True) for t in settled]
-    QK.settle(q_idx, q_count, *settled)
-    QK.settle_plain(q_idx.cpu(), q_count.cpu(), *want)
+    QK.settle(q_idx, q_count, *settled[:4], (q_work, s_sums))
+    QK.settle_plain(q_idx.cpu(), q_count.cpu(), *want[:4],
+                    (q_work.cpu(), want[4]))
     if not all(torch.equal(a.cpu(), b) for a, b in zip(settled, want)):
         fail("phase 5: settle != its plain version on the planted queue")
     if want[3].tolist() != [1000 + sel_k, 1, 1]:
         fail(f"phase 5: the planted failure and overflow gave the tally "
              f"{want[3].tolist()}")
+    q_trips = q_work[:sel_k, 0].long().cpu()
+    if want[4].tolist() != [500 + int(q_trips.sum()),
+                            900 + sel_k * int(q_trips.max())]:
+        fail(f"phase 5: settle's sums {want[4].tolist()} are not the "
+             "queue's trips and count x most trips")
+    # settle timed as the loop launches it, with K3's counters
+    sel_flags = (q_states.map_ok.clone(), q_states.map_overflow.clone())
+    sel_tally = torch.zeros(3, dtype=torch.int64, device=dev)
+    sel_sums = torch.zeros(2, dtype=torch.int64, device=dev)
+    ms_settle, _ = cuda_ms(lambda: QK.settle(
+        q_idx, q_count, *sel_flags, None, sel_tally, (q_work, sel_sums)),
+        reps=20, ahead=True)
+    ms_plain_settle, _ = cuda_ms(lambda: QK.settle_plain(
+        q_idx, q_count, *(t.clone() for t in sel_flags), None,
+        sel_tally.clone(), (q_work, sel_sums.clone())), reps=2)
     print(f"phase 5: the chunk loop's boundary at {N_MAIN} envs, capacity "
           f"{Q}, {sel_k} envs queued: K3 and K2 with the device count == "
           "their plain versions given it (every carry field, the maps, the "
           "prelude); settle == plain with a map failure and an overflow "
           "planted (the flags, the in-flight mask, the tally "
-          f"{want[3].tolist()})")
+          f"{want[3].tolist()}); K3's trips and retries == plain's, "
+          f"settle's sums of them {want[4].tolist()} == plain's)")
     # a sparse boundary: K3 and K2 at the capacity with a device count of
     # k, beside the launches sized to the k envs (the old boundary's)
     sparse = {}
@@ -863,7 +884,9 @@ def main():
               f"to it, {t['k3_count']:.4f} ms at capacity {Q} with the "
               f"device count; K2 {t['k2']:.4f} / {t['k2_count']:.4f} ms")
     bound_sel, by_sel = bound(4 * N_MAIN + 4 * (Q + 1))
-    bound_settle, by_settle = bound(8 * sel_k + 4 + 48)
+    # a queued env's index, flags and trips, the count, the tally and the
+    # sums read and written
+    bound_settle, by_settle = bound(12 * sel_k + 4 + 48 + 32)
     print(f"phase 5: the queue kernels at {N_MAIN} envs, capacity {Q}: "
           f"select {ms_sel:.4f} ms ({sel_k} envs taken; bound "
           f"{bound_sel:.6f} ms, {by_sel}), settle {ms_settle:.4f} ms (bound "
@@ -1054,7 +1077,8 @@ def main():
          "ms": ms_settle, "plain_ms": ms_plain_settle,
          "bound_ms": bound_settle,
          "bound_by": by_settle, "library_ms": None,
-         "launch_floor_ms": floor_block, "per": f"{sel_k}-env queue"},
+         "launch_floor_ms": floor_block,
+         "per": f"{sel_k}-env queue, with K3's counters"},
     ]
     record["kernels"] += phase6(dev, c, srng, states)
     record["kernels"] += phase7(dev, feed_checks, args, ms_k1 / CHUNK, plain1)

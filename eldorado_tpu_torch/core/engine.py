@@ -1337,11 +1337,12 @@ def reset_map_prelude(rng, n_pieces, difficulty, n_players):
 
 
 def reset_map_prelude_rows_plain(rng, n_pieces, difficulty, n_players, idx,
-                                 maps, count=None, prelude=None):
+                                 maps, count=None, prelude=None, work=None):
     """The plain version of `reset_map_prelude_rows`:
     `reset_map_prelude_plain` on the gathered rows (the first ``count``
     of them with ``count``), scattered back; with ``prelude``, written
-    into its first rows too."""
+    into its first rows too, and with ``work`` ((q, 2) int32) each
+    generated env's trips and retries, as K3 writes them."""
     if count is not None:
         idx = idx[:int(count)]
         if not idx.numel():   # an empty queue generates nothing
@@ -1352,6 +1353,8 @@ def reset_map_prelude_rows_plain(rng, n_pieces, difficulty, n_players, idx,
         rng[rows], n_pieces[rows], difficulty[rows], n_players[rows])
     for t, v in zip(maps, (gen.ids, gen.min_xy, gen.ok, gen.overflow)):
         t[rows] = v
+    if work is not None:
+        work[:rows.numel()] = torch.stack([gen.trips, gen.retries], 1)
     if prelude is None:
         return player_xy, ball
     for t, v in zip(prelude, (player_xy, *ball)):

@@ -12,6 +12,9 @@ single-env generator's.
   value).
 * Pushing past depth 5 aborts the generation: ``ok`` comes back False.
 * More than MAX_PLACED placements sets ``overflow``.
+* Each env counts its trips (until it finishes or aborts) and its retries
+  (child frames pushed, the push that aborts included): the reference's
+  ``generate(..., failures + 1, ...)`` calls.
 * Rasterisation is last-writer-wins, as a scatter-max over
   (slot << 7 | features).
 * Overlap is the reference's exact point-set semantics through the static
@@ -142,6 +145,8 @@ class MapGenState:
     finished: torch.Tensor      # (n,) bool
     aborted: torch.Tensor       # (n,) bool
     overflow: torch.Tensor      # (n,) bool
+    trips: torch.Tensor         # (n,) trips run while alive
+    retries: torch.Tensor       # (n,) child frames pushed
 
     def _replace(self, **kw) -> "MapGenState":
         return dataclasses.replace(self, **kw)
@@ -158,6 +163,10 @@ class MapGenOut:
     player_start_no: torch.Tensor  # (n, 4)
     ok: torch.Tensor               # (n,) bool
     overflow: torch.Tensor         # (n,) bool: MAX_PLACED bust
+    # (n,) int32 generator trips and retries (the plain version's; None
+    # from K3, which writes them to a queue's work buffer)
+    trips: torch.Tensor = None
+    retries: torch.Tensor = None
 
 
 def _bw(pred, a, b):
@@ -311,10 +320,12 @@ def _map_clear(s: MapGenState) -> MapGenState:
 
 def _push_child(s: MapGenState, resume: int) -> MapGenState:
     """generate(..., failures+1, <engine copy>); depth overflow == the
-    reference's throw (it fires at child entry, before any draw)."""
+    reference's throw (it fires at child entry, before any draw). Either
+    counts as a retry."""
     abort = s.sp >= MAX_DEPTH - 1
     sp1 = torch.clamp(s.sp + 1, max=MAX_DEPTH - 1)
     return s._replace(
+        retries=s.retries + 1,
         frame_resume=_put(s.frame_resume, s.sp, resume),
         frame_rng=_bw(abort, s.frame_rng,
                       _put(s.frame_rng, sp1, _take(s.frame_rng, s.sp))),
@@ -327,7 +338,8 @@ def _trip(s: MapGenState, n_pieces, difficulty) -> MapGenState:
     """One flat trip of the recursive generator (mapgen._trip): the
     branches share one gated placement attempt, and every draw is gated
     by its branch, so each lane consumes exactly its branch's stream. A
-    finished or aborted lane is left as it is."""
+    finished or aborted lane is left as it is; a live one counts the
+    trip."""
     k = _K(s.sp.device)
     alive = ~(s.finished | s.aborted)
     is_entry = alive & (s.pc == _ENTRY)
@@ -382,7 +394,7 @@ def _trip(s: MapGenState, n_pieces, difficulty) -> MapGenState:
                     s.frame_i),
         pc=torch.where(inc, _LOOP, _POP).to(_i32))
 
-    return _merge(
+    out = _merge(
         s,
         (is_entry, entered),
         (loop_act & success, loop_ok),
@@ -392,6 +404,7 @@ def _trip(s: MapGenState, n_pieces, difficulty) -> MapGenState:
         (is_end & ~success, end_fail),
         (is_pop & at_root, s._replace(finished=torch.ones_like(s.finished))),
         (is_pop & ~at_root, popped))
+    return out._replace(trips=s.trips + alive.to(_i32))
 
 
 def _finalize(s: MapGenState) -> MapGenOut:
@@ -430,7 +443,8 @@ def _finalize(s: MapGenState) -> MapGenOut:
                      player_start_xy=start_xy.to(_i32),
                      player_start_no=starts,
                      ok=~(s.aborted | s.overflow),
-                     overflow=s.overflow & ~s.aborted)
+                     overflow=s.overflow & ~s.aborted,
+                     trips=s.trips, retries=s.retries)
 
 
 def _per_env(v, n, dev):
@@ -459,7 +473,7 @@ def generate_map_plain(rng_state, n_pieces, difficulty) -> MapGenOut:
         frame_rng=rng_state[:, None].expand(n, MAX_DEPTH).clone(),
         frame_i=z(MAX_DEPTH), frame_valid=z(MAX_DEPTH),
         frame_resume=z(MAX_DEPTH), sp=z(), pc=z(),
-        finished=nb, aborted=nb, overflow=nb)
+        finished=nb, aborted=nb, overflow=nb, trips=z(), retries=z())
     n_pieces = _per_env(n_pieces, n, dev)
     difficulty = _per_env(difficulty, n, dev)
     while bool((~(s.finished | s.aborted)).any()):
@@ -473,10 +487,11 @@ generate_map_plain.cuda_trips = 0
 
 
 def check_launch(rng, n_pieces, difficulty, maps, idx=None, starts=None,
-                 n_players=None, prelude=None, count=None):
+                 n_players=None, prelude=None, count=None, work=None):
     """`launch`'s checks of its arguments (CUDA tensors only), and of
-    ``count`` ((1,) int32 on the device), which `launch_generate_map`
-    takes for a queue launched at its capacity. Returns their device."""
+    ``count`` ((1,) int32 on the device) and ``work`` ((q, 2) int32),
+    which `launch_generate_map` takes for a queue launched at its
+    capacity. Returns their device."""
     from ..ops.step_kernel import _check, _device_of
     from .engine import N_BALL
     n = rng.shape[0]
@@ -496,6 +511,9 @@ def check_launch(rng, n_pieces, difficulty, maps, idx=None, starts=None,
     if count is not None:
         _check(count, "count", (1,))
         outs.append(count)
+    if work is not None:
+        _check(work, "work", (q, 2))
+        outs.append(work)
     if starts is not None:
         _check(starts[0], "start_xy", (q, MAX_N_PLAYERS, 2))
         _check(starts[1], "start_no", (q, MAX_N_PLAYERS))
@@ -538,12 +556,13 @@ def launch(rng, n_pieces, difficulty, maps, idx=None, starts=None,
 
 def launch_generate_map(rng, n_pieces, difficulty, maps, idx=None,
                         starts=None, n_players=None, prelude=None,
-                        shape=None, count=None) -> None:
+                        shape=None, count=None, work=None) -> None:
     """K3's launch alone, on CUDA tensors that `check_launch` has checked
     (the chunk loop's launch, which checks once per call); the arguments
     as `launch`'s, and ``count``: a (1,) int32 on the device that limits
     the launch to the slots below it (a queue launched at its capacity and
-    sized on the card)."""
+    sized on the card); ``work``: a (q, 2) int32 into which each generated
+    slot writes its generator trips and retries."""
     from ..ops import build
 
     def ptr(t):
@@ -557,7 +576,8 @@ def launch_generate_map(rng, n_pieces, difficulty, maps, idx=None,
             ptr(n_players if prelude is not None else None),
             _K(dev).ovl.data_ptr(), *(t.data_ptr() for t in maps),
             ptr(st[0]), ptr(st[1]), *map(ptr, pre),
-            rng.shape[0] if idx is None else idx.shape[0], ptr(count))
+            rng.shape[0] if idx is None else idx.shape[0], ptr(count),
+            ptr(work))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if shape is None:

@@ -72,12 +72,13 @@ generate_map_kernel(const int* __restrict__ rng, const int* __restrict__ idx,
                     const int* __restrict__ ovl, int* map_ids, int* min_xy,
                     unsigned char* ok, unsigned char* overflow, int* start_xy,
                     int* start_no, int* player_xy, int* req, int* nr,
-                    int* end, int q, const int* __restrict__ count) {
+                    int* end, int q, const int* __restrict__ count,
+                    int* work) {
   extern __shared__ __align__(16) unsigned char ed_map_smem[];
   const ed::MapArgs a = {rng,      idx,      n_pieces, difficulty, n_players,
                          ovl,      map_ids,  min_xy,   ok,         overflow,
                          start_xy, start_no, player_xy, req,       nr,
-                         end,      q};
+                         end,      q,        work};
   const int envs = blockDim.x / ed::kLanes, warp = threadIdx.x / ed::kLanes;
   ed::MapScratch* scratch = reinterpret_cast<ed::MapScratch*>(ed_map_smem);
   const int e = blockIdx.x * envs + warp;
@@ -116,7 +117,7 @@ int launch(const ed::MapArgs& a, const int* count, int envs,
          smem_bytes(envs, kOvlShared), stream>>>(
           a.rng, a.idx, a.n_pieces, a.difficulty, a.n_players, a.ovl,
           a.map_ids, a.min_xy, a.ok, a.overflow, a.start_xy, a.start_no,
-          a.player_xy, a.req, a.nr, a.end, a.q, count);
+          a.player_xy, a.req, a.nr, a.end, a.q, count, a.work);
   return (int)cudaGetLastError();
 }
 
@@ -129,7 +130,9 @@ int launch(const ed::MapArgs& a, const int* count, int envs,
 // null; player_xy (q, 4, 2) and req / nr / end (q, 4, 19) are null
 // together, and n_players with them. count, a (1,) int32 on the device or
 // null: with it, only the slots e < *count generate (a queue launched at its
-// capacity, sized on the card); null: all q. envs_per_block in 1..4 (else
+// capacity, sized on the card); null: all q. work, a (q, 2) int32 or null:
+// each generated slot's generator trips and retries (child frames pushed,
+// the one that aborts included). envs_per_block in 1..4 (else
 // cudaErrorInvalidValue); ovl_shared stages the pair table in each block's
 // shared memory instead of reading it through L1.
 extern "C" int ed_generate_map_shaped(
@@ -137,7 +140,8 @@ extern "C" int ed_generate_map_shaped(
     const void* difficulty, const void* n_players, const void* ovl,
     void* map_ids, void* min_xy, void* ok, void* overflow, void* start_xy,
     void* start_no, void* player_xy, void* req, void* nr, void* end, int q,
-    const void* count, int envs_per_block, int ovl_shared, void* stream) {
+    const void* count, void* work, int envs_per_block, int ovl_shared,
+    void* stream) {
   if (envs_per_block < 1 || envs_per_block > kMaxEnvsPerBlock)
     return (int)cudaErrorInvalidValue;
   if (q <= 0) return 0;
@@ -147,7 +151,7 @@ extern "C" int ed_generate_map_shaped(
       (int*)map_ids,          (int*)min_xy,           (unsigned char*)ok,
       (unsigned char*)overflow, (int*)start_xy,       (int*)start_no,
       (int*)player_xy,        (int*)req,              (int*)nr,
-      (int*)end,              q};
+      (int*)end,              q,                      (int*)work};
   cudaStream_t st = (cudaStream_t)stream;
   const int* c = (const int*)count;
   return ovl_shared ? launch<true>(a, c, envs_per_block, st)
@@ -161,11 +165,12 @@ extern "C" int ed_generate_map(const void* rng, const void* idx,
                                void* map_ids, void* min_xy, void* ok,
                                void* overflow, void* start_xy, void* start_no,
                                void* player_xy, void* req, void* nr, void* end,
-                               int q, const void* count, void* stream) {
+                               int q, const void* count, void* work,
+                               void* stream) {
   return ed_generate_map_shaped(rng, idx, n_pieces, difficulty, n_players,
                                 ovl, map_ids, min_xy, ok, overflow, start_xy,
                                 start_no, player_xy, req, nr, end, q, count,
-                                kDefaultEnvs, kDefaultOvlShared, stream);
+                                work, kDefaultEnvs, kDefaultOvlShared, stream);
 }
 
 // K3's block for a shape (envs_per_block 0: the default shape) on the

@@ -381,6 +381,7 @@ struct MapGen {
   int i = 0, valid = 0;  // its loop index and its eligible travel pieces
   int n_entries = 0, min_x = 0, min_y = 0, max_x = 0, max_y = 0;
   int sp = 0, pc = 0, finished = 0, aborted = 0, overflow = 0;
+  int trips = 0, retries = 0;  // trips run (`count_trips`), frames pushed
 };
 
 // x mod 6 in [0, 6), as torch's % on a negative x
@@ -519,9 +520,10 @@ ED_HD bool try_add_random(MapGen& g, int pid, Ovl ovl) {
 // generate(..., failures + 1, <engine copy>) (mapgen._push_child): the
 // leader saves the parent's frame; the child starts from a copy of the
 // parent's engine. A push at depth kMaxDepth - 1 aborts, and the env's
-// state freezes there.
+// state freezes there; it counts as a retry all the same.
 template <class L>
 ED_HD void push_child(MapGen& g, int resume) {
+  g.retries += 1;
   if (g.sp >= kMaxDepth - 1) {
     g.aborted = 1;
     return;
@@ -595,6 +597,23 @@ ED_HD void trip(MapGen& g, int n_pieces, int difficulty, Ovl ovl) {
   }
 }
 
+// The trips a generation ran, from its retries, so that the trip loop
+// carries no counter: a frame that runs to its end takes n + 4 trips (its
+// entry, one a piece index, the loop's end, the end piece and its pop),
+// whatever its children did, so a generation that finishes took (n + 4) x
+// (1 + retries). One that aborted holds sp + 1 open frames: each took its
+// entry, its indices below the one it failed at and the failing trip (i +
+// 2), or, where its end piece failed (at i == n), n + 3; the other retries
+// - (sp + 1) frames it pushed ran to their ends.
+ED_HD int count_trips(const MapGen& g, int n_pieces) {
+  const int whole = (n_pieces > 0 ? n_pieces : 0) + 4;
+  if (!g.aborted) return whole * (1 + g.retries);
+  int open = g.i + (g.pc == PC_END ? 3 : 2);
+  for (int d = 0; d < g.sp; ++d)
+    open += g.m.frame_i[d] + (g.m.frame_resume[d] == RES_POP ? 3 : 2);
+  return whole * (g.retries - (g.sp + 1)) + open;
+}
+
 // the whole generator from engine state `rng`, consumed by value
 template <class L, class Ovl>
 ED_HD void generate(MapGen& g, uint32_t rng, int n_pieces, int difficulty,
@@ -611,8 +630,10 @@ ED_HD void generate(MapGen& g, uint32_t rng, int n_pieces, int difficulty,
   g.i = g.valid = 0;
   g.n_entries = g.min_x = g.min_y = g.max_x = g.max_y = 0;
   g.sp = g.pc = g.finished = g.aborted = g.overflow = 0;
+  g.retries = 0;
   difficulty = difficulty < 0 ? 0 : difficulty > 2 ? 2 : difficulty;
   while (!g.finished && !g.aborted) trip<L>(g, n_pieces, difficulty, ovl);
+  g.trips = count_trips(g, n_pieces);
 }
 
 // the final rasterisation (src/map.cpp:389-405; mapgen._finalize) into the
@@ -649,8 +670,8 @@ ED_HD void raster(const MapGen& g, int* ids) {
 
 // K3's arguments. Per-env inputs and the batch outputs are read and
 // written at row idx[e] (row e without idx); the queue-width outputs at
-// e. start_xy / start_no, and the prelude's outputs (with n_players), may
-// be null.
+// e. start_xy / start_no, the prelude's outputs (with n_players) and work
+// may be null.
 struct MapArgs {
   const int* rng;         // (n,) engine words, consumed by value
   const int* idx;         // (q,) rows, unique; or null
@@ -669,6 +690,7 @@ struct MapArgs {
   int* nr;
   int* end;
   int q;
+  int* work;              // (q, 2): the env's trips and retries
 };
 
 ED_HD int map_row(const MapArgs& a, int e) { return a.idx ? a.idx[e] : e; }
@@ -720,8 +742,8 @@ ED_HD void map_prelude(const MapArgs& a, int e, int row, const MapGen& g,
 }
 
 // Env e: its generation, raster (staged in the scratch, then written to
-// the batch row whole, 16 bytes a lane per store), flags, start positions
-// and prelude.
+// the batch row whole, 16 bytes a lane per store), flags, counts, start
+// positions and prelude.
 template <class L, class Ovl>
 ED_HD void map_env(const MapArgs& a, int e, MapScratch& sc, Ovl ovl) {
   const int row = map_row(a, e);
@@ -739,6 +761,10 @@ ED_HD void map_env(const MapArgs& a, int e, MapScratch& sc, Ovl ovl) {
     a.min_xy[2 * row + 1] = g.min_y;
     a.ok[row] = !(g.aborted || g.overflow);
     a.overflow[row] = g.overflow && !g.aborted;
+    if (a.work) {
+      a.work[2 * e] = g.trips;
+      a.work[2 * e + 1] = g.retries;
+    }
   }
   map_prelude<L>(a, e, row, g, sc.raster);
 }

@@ -13,12 +13,13 @@
 //
 // What bounds them: neither bytes (select reads n done words, and the
 // in-flight bytes in the async mode, and writes q_cap + 1 words: 16 KB at
-// 4096 envs, 5 ns at HBM's rate; settle touches 10 bytes a queued env)
-// nor instructions, but the launch and a block's few barriers. So each is
-// one block: select's threads walk the flags a block-wide tile at a time
-// (a ballot and a scan of the warps' counts order the done envs by index)
-// and stop once q_cap are taken; settle's threads take a queue slot each
-// and reduce the flags with one barrier each.
+// 4096 envs, 5 ns at HBM's rate; settle touches 10 bytes a queued env, 14
+// with K3's trips) nor instructions, but the launch and a block's few
+// barriers. So each is one block: select's threads walk the flags a
+// block-wide tile at a time (a ballot and a scan of the warps' counts order
+// the done envs by index) and stop once q_cap are taken; settle's threads
+// take a queue slot each and reduce the flags with one barrier each, and
+// K3's trips with a warp reduction each between the same barriers.
 #include <cuda_runtime.h>
 
 namespace {
@@ -70,17 +71,35 @@ queue_select_kernel(const int* __restrict__ done, unsigned char* inflight,
 // Over the queue's slots below *count: every env takes the whole queue's
 // map outcome (ok: all of them ok; overflow: any of them overflowed), the
 // queue's count is added to tally[0], a failure sets tally[1] and an
-// overflow tally[2]; with inflight, each env's flag is cleared. A slot a
-// thread; all reads come before the first write (the barriers).
+// overflow tally[2]; with inflight, each env's flag is cleared. With work
+// (K3's per-slot trips and retries), work_tally gains the queue's trips
+// and count x its most trips (the lanes' time K3's launch holds while it
+// waits for its slowest env). A slot a thread; all reads come before the
+// first write (the barriers).
 __global__ void __launch_bounds__(kMaxThreads)
 queue_settle_kernel(const int* __restrict__ idx, const int* __restrict__ count,
                     unsigned char* ok, unsigned char* overflow,
-                    unsigned char* inflight, long long* tally) {
+                    unsigned char* inflight, long long* tally,
+                    const int* __restrict__ work, long long* work_tally) {
+  __shared__ int sums[2];  // trips, most trips
   const int k = *count, s = threadIdx.x;
   const bool live = s < k;
+  // every load is issued before the first barrier, so that their
+  // latencies overlap
+  const int trips = work && live ? work[2 * s] : 0;
   const int row = live ? idx[s] : 0;
-  const bool all_ok = __syncthreads_and(!live || ok[row]) != 0;
-  const bool any_over = __syncthreads_or(live && overflow[row]) != 0;
+  const bool my_ok = !live || ok[row], my_over = live && overflow[row];
+  if (work && s == 0) sums[0] = sums[1] = 0;
+  const bool all_ok = __syncthreads_and(my_ok) != 0;
+  if (work) {  // each warp reduces its slots, its lane 0 adds them in
+    const int t = __reduce_add_sync(kFull, trips);
+    const int m = __reduce_max_sync(kFull, trips);
+    if (s % kLanes == 0 && t > 0) {
+      atomicAdd(&sums[0], t);
+      atomicMax(&sums[1], m);
+    }
+  }
+  const bool any_over = __syncthreads_or(my_over) != 0;
   if (live) {
     ok[row] = all_ok;
     overflow[row] = any_over;
@@ -90,6 +109,10 @@ queue_settle_kernel(const int* __restrict__ idx, const int* __restrict__ count,
     tally[0] += k;
     if (!all_ok) tally[1] = 1;
     if (any_over) tally[2] = 1;
+    if (work) {
+      work_tally[0] += sums[0];
+      work_tally[1] += (long long)k * sums[1];
+    }
   }
 }
 
@@ -113,14 +136,20 @@ extern "C" int ed_queue_select(const void* done, void* inflight, void* idx,
 
 // idx (q_cap,) and count (1,) int32 as select wrote them; ok / overflow
 // (n,) bool, the batch's map flags; inflight (n,) bool or null; tally
-// (3,) int64: episodes, failed, overflow.
+// (3,) int64: episodes, failed, overflow; work (q_cap, 2) int32, K3's
+// trips and retries by slot, and work_tally (2,) int64: trips, count x
+// most trips, both null or neither.
 extern "C" int ed_queue_settle(const void* idx, const void* count, void* ok,
                                void* overflow, void* inflight, void* tally,
-                               int q_cap, void* stream) {
+                               const void* work, void* work_tally, int q_cap,
+                               void* stream) {
   if (q_cap <= 0) return 0;
   if (q_cap > kMaxThreads) return (int)cudaErrorInvalidValue;
+  if ((work == nullptr) != (work_tally == nullptr))
+    return (int)cudaErrorInvalidValue;
   queue_settle_kernel<<<1, threads_for(q_cap), 0, (cudaStream_t)stream>>>(
       (const int*)idx, (const int*)count, (unsigned char*)ok,
-      (unsigned char*)overflow, (unsigned char*)inflight, (long long*)tally);
+      (unsigned char*)overflow, (unsigned char*)inflight, (long long*)tally,
+      (const int*)work, (long long*)work_tally);
   return (int)cudaGetLastError();
 }

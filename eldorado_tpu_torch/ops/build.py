@@ -59,14 +59,15 @@ _ENTRIES = {
     "ed_fused_reset": [_P] * 9 + [_I] * 2 + [_P],
     # rng, idx, n_pieces, difficulty, n_players, ovl, map_ids, min_xy, ok,
     # overflow, start_xy, start_no, player_xy, req, nr, end, q, count,
-    # stream
-    "ed_generate_map": [_P] * 16 + [_I] + [_P] * 2,
+    # work, stream
+    "ed_generate_map": [_P] * 16 + [_I] + [_P] * 3,
     # the same, then envs_per_block, ovl_shared before the stream
-    "ed_generate_map_shaped": [_P] * 16 + [_I, _P, _I, _I, _P],
+    "ed_generate_map_shaped": [_P] * 16 + [_I, _P, _P, _I, _I, _P],
     # done, inflight, idx, count, n, q_cap, stream
     "ed_queue_select": [_P] * 4 + [_I] * 2 + [_P],
-    # idx, count, ok, overflow, inflight, tally, q_cap, stream
-    "ed_queue_settle": [_P] * 6 + [_I] + [_P],
+    # idx, count, ok, overflow, inflight, tally, work, work_tally, q_cap,
+    # stream
+    "ed_queue_settle": [_P] * 8 + [_I] + [_P],
     # envs_per_block, ovl_shared; out: envs per block, threads per block,
     # shared bytes per block, blocks per SM, ovl_shared
     "ed_generate_map_shape": [_I] * 2 + [_P],

@@ -107,6 +107,12 @@ def find_entry(text: str, pattern: str) -> str:
     return names[0]
 
 
+def entry_params(text: str, entry: str) -> int:
+    """The number of parameters of the ``.entry`` named ``entry``."""
+    m = re.search(rf"\.entry\s+{re.escape(entry)}\s*\(([^)]*)\)", text)
+    return len(re.findall(r"\.param\b", m.group(1)))
+
+
 def classify(inst: str) -> str:
     """The kind of a PTX instruction (a code line), as `KINDS` names them
     and as the card's units execute them: "int" (integer and logic
@@ -244,6 +250,7 @@ class CountedKernel:
         torch.zeros(1, device="cuda")   # make the primary context current
         text = ptx(source)
         self.entry = find_entry(text, pattern)
+        self.n_params = entry_params(text, self.entry)
         text, self.static = instrument(text, self.entry)
         d = _driver()
         self._mod = ctypes.c_void_p()
@@ -259,7 +266,11 @@ class CountedKernel:
 
     def __call__(self, blocks: int, threads: int, smem: int, args) -> dict:
         """``args``: tensors (passed as device pointers), None (a null
-        pointer) or ints (32-bit), in the kernel's order."""
+        pointer) or ints (32-bit), in the kernel's order, one for each of
+        its parameters."""
+        if len(args) != self.n_params:
+            raise ValueError(f"{self.entry} takes {self.n_params} arguments, "
+                             f"given {len(args)}")
         d = _driver()
         if smem > 48 * 1024:
             d("cuFuncSetAttribute", self._fn,
@@ -402,7 +413,8 @@ def count_k3(rng, n_pieces, difficulty, n_players, idx) -> dict:
     pattern = f"generate_map_kernelILb{int(shape['ovl_shared'])}E"
     return counter("mapgen.cu", pattern)(
         shape["blocks"], shape["threads"], shape["smem_bytes"],
-        _k3_args(rng, n_pieces, difficulty, n_players, idx) + [None])
+        _k3_args(rng, n_pieces, difficulty, n_players, idx)
+        + [None, None])   # no count, no work buffer
 
 
 def count_k3_work(rng, n_pieces, difficulty, n_players, idx) -> dict:

@@ -38,10 +38,13 @@ from .spans import span
 __all__ = ["VecEnv", "vec_reset", "vec_reset_varied", "vec_step",
            "vec_sample", "rollout", "rollout_chunked", "kernel_rollout",
            "sampler_init", "reset_done", "reset_done_bucketed",
-           "check_map_generation"]
+           "check_map_generation", "queue_work"]
 
 _i32 = torch.int32
 _OFF = {f: off for f, _, _, off, _ in E.DYN_LAYOUT}
+# the chunk loops' queued resets in this process and K3's work on them
+# (`queue_work`), added at each loop's end from its one tally read
+_QUEUE_WORK = dict.fromkeys(("resets", "trips", "slowest_lane_trips"), 0)
 
 
 def _seeds(seed, n, device):
@@ -76,6 +79,17 @@ def _raise_map_failures(overflow, failed):
         raise GenerateMapFailure(
             "map generation failed more than MAX_FAILURES times "
             "(reference: generate_map_failure)")
+
+
+def queue_work() -> dict:
+    """K3's work on the chunk loops' reset queues (`rollout_chunked`,
+    `stream.stream_rollout`, `parallel.runner`) in this process so far:
+    ``resets`` (envs reset by a queue; the end-of-call sweep's are not
+    counted), ``trips`` (their generator trips), ``slowest_lane_trips``
+    (over each queue, its count times its most trips: the lanes' time a
+    launch holds while it waits for its slowest env). Totals as ints, read
+    from each loop's tally at its end; nothing is read at a boundary."""
+    return dict(_QUEUE_WORK)
 
 
 def _q_cap(n: int) -> int:
@@ -381,11 +395,12 @@ class _ChunkLoop:
     and K2 run at the queue's capacity, their slots past the count empty;
     `ops.queue.settle` writes the queue's map flags and adds the queue to
     the loop's tally (episodes, failed, overflow; K1 adds the dead steps
-    beside them), which `_end_chunks` reads once. The loop allocates its
-    buffers and checks every launch's tensors once, here; the launches at
-    the boundaries go unchecked (CPU tensors take the plain versions). K1
-    writes out of place into two carries and two engine rows taken in
-    turn.
+    beside them; then K3's trips and slowest-lane trips, from the per-slot
+    counts K3 writes into the loop's work buffer), which
+    `_end_chunks` reads once. The loop allocates its buffers and checks
+    every launch's tensors once, here; the launches at the boundaries go
+    unchecked (CPU tensors take the plain versions). K1 writes out of
+    place into two carries and two engine rows taken in turn.
 
     With ``record`` ("compact" or "full") K1 writes each chunk's records
     into one of two (chunk, n, W) device buffers, alternating, and
@@ -429,9 +444,13 @@ class _ChunkLoop:
                           for c in (carry, torch.empty_like(carry))]
             self.cur = 0
             self.act = torch.empty((n, 5), dtype=_i32, device=dev)
-            # episodes, failed, overflow (settle's), dead steps (K1's)
-            self.tally = torch.zeros(4, dtype=torch.int64, device=dev)
-            self.settled, self.dead = self.tally[:3], self.tally[3:]
+            # episodes, failed, overflow (settle's), dead steps (K1's),
+            # trips, slowest-lane trips (settle's, from K3's per-slot
+            # counts in `work`)
+            self.tally = torch.zeros(6, dtype=torch.int64, device=dev)
+            self.settled, self.dead = self.tally[:3], self.tally[3:4]
+            self.counters = (torch.empty((q_cap, 2), dtype=_i32, device=dev),
+                             self.tally[4:])
             self.bufs = ([torch.empty((chunk, n, K.RECORD_WORDS[record]),
                                       dtype=_i32, device=dev)
                           for _ in range(2)] if record else None)
@@ -456,13 +475,14 @@ class _ChunkLoop:
                            records=self.bufs[0] if self.record else None)
         for idx, count in self.queues:
             Q.check(done, self.inflight, idx, count, st["map_ok"],
-                    st["map_overflow"], self.settled)
+                    st["map_overflow"], self.settled, self.counters)
             K.check_fused_reset(carry, st["n_players"], *self.prelude, idx,
                                 count)
             if self.cuda:
                 MG.check_launch(rng, st["n_pieces"], st["difficulty"],
                                 self.maps, idx, n_players=st["n_players"],
-                                prelude=self.prelude, count=count)
+                                prelude=self.prelude, count=count,
+                                work=self.counters[0])
 
     @property
     def carry(self):
@@ -505,23 +525,24 @@ class _ChunkLoop:
         with its device count, then settle. Span ``ed.reset``."""
         idx, count = queue
         carry, _, _, rng = self.slots[self.cur]
-        st, pre = self.static, self.prelude
+        st, pre, work = self.static, self.prelude, self.counters[0]
         with span("ed.reset"):
             if self.cuda:
                 MG.launch_generate_map(
                     rng, st["n_pieces"], st["difficulty"], self.maps, idx,
-                    n_players=st["n_players"], prelude=pre, count=count)
+                    n_players=st["n_players"], prelude=pre, count=count,
+                    work=work)
                 K.launch_fused_reset(carry, carry, st["n_players"], *pre,
                                      idx, count)
                 Q.launch_settle(idx, count, st["map_ok"], st["map_overflow"],
-                                self.inflight, self.settled)
+                                self.inflight, self.settled, self.counters)
             else:
                 E.reset_map_prelude_rows_plain(
                     rng, st["n_pieces"], st["difficulty"], st["n_players"],
-                    idx, self.maps, count, pre)
+                    idx, self.maps, count, pre, work)
                 K.fused_reset_plain(carry, st["n_players"], *pre, idx, count)
                 Q.settle_plain(idx, count, st["map_ok"], st["map_overflow"],
-                               self.inflight, self.settled)
+                               self.inflight, self.settled, self.counters)
         if self.keyframes:
             _ChunkLoop.boundary_reads += 1
             k = int(count)
@@ -569,11 +590,15 @@ def _run_chunks(loops, n_chunks: int, total=None):
 
 def _end_chunks(loops, n_chunks: int, total):
     """`_run_chunks` after the last boundary: async's last queues, the
-    tallies, the map failures, the sweeps and the merges."""
+    tallies (K3's work into `queue_work`), the map failures, the sweeps and
+    the merges."""
     for loop in loops:
         loop.flush(n_chunks)
-    # episodes, failed, overflow, dead steps: one read a loop
+    # episodes, failed, overflow, dead steps, trips, slowest-lane trips:
+    # one read a loop
     tallies = [loop.tally.tolist() for loop in loops]
+    for key, col in (("resets", 0), ("trips", 4), ("slowest_lane_trips", 5)):
+        _QUEUE_WORK[key] += sum(t[col] for t in tallies)
     overflow, failed = total([sum(t[2] for t in tallies),
                               sum(t[1] for t in tallies)])
     if overflow:

@@ -16,10 +16,11 @@ their slices' runs, make_mesh's card count, and the sharded paths CUDA
 against CPU; the profiler's host and device clocks against each other
 through K1-act's count-read span; and the chunk loop's device-resident
 reset queue: select and settle (csrc/queue.cu) and K3 and K2 given a
-device count against their plain versions, the loop CUDA against CPU where
-the queue overflows (sync and async, exact or not, two shards), no torch
-op and no host read between chunks, and the learner's launches as they
-were.
+device count against their plain versions, K3's per-slot trips and
+retries and settle's sums of them against theirs, the loop CUDA against
+CPU where the queue overflows (sync and async, exact or not, two shards),
+no torch op and no host read between chunks, and the learner's launches
+as they were.
 
 Marked ``cuda``: skipped where torch sees no GPU. On the machine with the
 card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -896,6 +897,51 @@ def test_queue_k3_k2_settle_with_a_count_equal_plain(dev, k):
         outs.append([carry, *maps, tally, inflight])
     for a, b in zip(*outs):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("k", [77, 128])
+def test_k3_counts_and_settle_sums_equal_plain(dev, k):
+    """K3 launched at a 128-slot queue's capacity with a device count, on
+    a mixed batch (1-16 pieces, difficulties 0-2: lanes that retry, abort
+    and overflow), writes each generated slot's trips and retries as the
+    plain generator counts them, and nothing past the count; settle's sums
+    of them (trips, count x most trips) are the host's."""
+    from eldorado_tpu_torch.ops import queue as Q
+    n = 512
+    seeds, players, pieces, diff = MG.mixed_batch(n, seed=6)
+    st = TE.make_state(torch.as_tensor(seeds, device=dev), players, pieces,
+                       diff, 100)
+    idx = torch.cat([torch.arange(509, 512), torch.arange(0, 500, 4)]).to(
+        device=dev, dtype=torch.int32)   # 128 rows, the overflow lanes first
+    count = torch.tensor([k], dtype=torch.int32, device=dev)
+    maps = [t.clone() for t in (st.map_ids, st.min_xy, st.map_ok,
+                                st.map_overflow)]
+    pre = TE._prelude_out(128, dev)
+    work = torch.full((128, 2), -7, dtype=torch.int32, device=dev)
+    k3 = (st.rng, st.n_pieces, st.difficulty, maps, idx)
+    MG.check_launch(*k3, n_players=st.n_players, prelude=pre, count=count,
+                    work=work)
+    MG.launch_generate_map(*k3, n_players=st.n_players, prelude=pre,
+                           count=count, work=work)
+    rows = idx[:k].long()
+    gen = MG.generate_map_plain(st.rng[rows], st.n_pieces[rows],
+                                st.difficulty[rows])
+    want = torch.full((128, 2), -7, dtype=torch.int32, device=dev)
+    want[:k] = torch.stack([gen.trips, gen.retries], 1)
+    assert torch.equal(work, want)
+    assert bool((gen.retries > 0).any()) and bool((~gen.ok).any())
+    assert int(gen.trips.max()) > int(gen.trips.min())
+    sums = []
+    for d in (dev, torch.device("cpu")):
+        ok, over = (maps[2].to(d, copy=True), maps[3].to(d, copy=True))
+        tally = torch.zeros(3, dtype=torch.int64, device=d)
+        counters = (work.to(d), torch.zeros(2, dtype=torch.int64, device=d))
+        Q.settle(idx.to(d), count.to(d), ok, over, None, tally, counters)
+        sums.append([t.cpu() for t in (counters[1], tally, ok, over)])
+    for a, b in zip(*sums):
+        assert torch.equal(a, b)
+    trips = gen.trips.long()
+    assert sums[0][0].tolist() == [int(trips.sum()), k * int(trips.max())]
 
 
 QUEUE_RUNS = [("sync", False), ("sync", True), ("async", False),

@@ -9,7 +9,9 @@ of a nested scope are not instructions), every return first adds the
 thread's totals to the global ``ed_icount[3]``, and the static count is
 the entry's instruction count by kind. A call, whose instructions would
 go uncounted, is refused. The SASS side: a ``cuobjdump -sass`` listing
-parsed into one function's static counts by the same kinds.
+parsed into one function's static counts by the same kinds. And each
+entry's number of parameters, which the instrumented launch checks its
+arguments against.
 """
 import re
 
@@ -91,6 +93,12 @@ def test_instrument_counts_each_block_and_sums_at_return():
         f"red.global.add.u64 \t[ed_icount+{8 * j}], %icnt{j};"
         for j in range(3)]
     assert code[ret - 4] == "add.s64 \t%icnt2, %icnt2, 1;"
+
+
+def test_entry_params_counts_each_entrys_parameters():
+    """What the instrumented launch checks its arguments against."""
+    assert I.entry_params(PTX, "kern") == 2
+    assert I.entry_params(PTX, "other") == 1
 
 
 @pytest.mark.parametrize("inst, kind", [

@@ -7,7 +7,8 @@ run on the CPU through the lane shim's loop form (``ed::LoopLanes``: one
 thread runs the 32 lanes of each of the warp's cooperative steps, the
 candidate scan's ballots, the bounding-box reductions, the raster and the
 ball cells, in lane order), so the code K3's warps run is what is held. It is held to `mapgen.generate_map_plain` plus the plain
-prelude (`engine.reset_map_prelude` on CPU tensors) on a mixed batch
+prelude (`engine.reset_map_prelude` on CPU tensors), with each env's
+generator trips and retries, on a mixed batch
 (`mapgen.mixed_batch`: 1-4 players, 1-16 pieces, difficulties 0-2; lanes
 that abort after five failed retries, and lanes whose retries stack 52
 placements past MAX_PLACED), through the queue form (rows picked by
@@ -50,14 +51,15 @@ def host_map(tmp_path_factory):
          "-o", str(so), str(HOST_SOURCE)], capture_output=True, text=True)
     assert res.returncode == 0, res.stdout + res.stderr
     fn = ctypes.CDLL(str(so)).ed_host_generate_map
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int]
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ovl = torch.as_tensor(MG._build_pair_overlap()).to(_i32)
 
     def run(rng, n_pieces, difficulty, n_players, idx=None):
         """K3's outputs for the envs ``idx`` (all without) of (n,) batch
         inputs: the batch rows (ids, min_xy, ok, overflow, sentinel -7
-        where no env was generated) and the queue-width rest."""
+        where no env was generated) and the queue-width rest, with
+        ``work``: each env's trips and retries."""
         n = rng.shape[0]
         q = n if idx is None else idx.shape[0]
         out = dict(
@@ -69,10 +71,12 @@ def host_map(tmp_path_factory):
             start_no=torch.zeros((q, 4), dtype=_i32),
             player_xy=torch.zeros((q, 4, 2), dtype=_i32),
             **{k: torch.zeros((q, 4, E.N_BALL), dtype=_i32)
-               for k in ("req", "nr", "end")})
+               for k in ("req", "nr", "end")},
+            work=torch.full((q, 2), -7, dtype=_i32))
         ins = (rng, idx, n_pieces, difficulty, n_players, ovl)
         err = fn(*(None if t is None else t.data_ptr() for t in ins),
-                 *(out[k].data_ptr() for k in FIELDS), q)
+                 *(out[k].data_ptr() for k in FIELDS), q,
+                 out["work"].data_ptr())
         assert err == 0
         return out
     return run
@@ -93,17 +97,19 @@ def plain(rng, n_pieces, difficulty, n_players):
     return dict(ids=gen.ids, min_xy=gen.min_xy, ok=gen.ok,
                 overflow=gen.overflow, start_xy=gen.player_start_xy,
                 start_no=gen.player_start_no, player_xy=pxy, req=req, nr=nr,
-                end=end)
+                end=end, work=torch.stack([gen.trips, gen.retries], 1))
 
 
 def test_host_equals_plain_on_mixed_batch(host_map):
     seeds, players, pieces, diff = MG.mixed_batch(48)
     args = batch(seeds, pieces, diff, players)
     got, want = host_map(*args), plain(*args)
-    for f in FIELDS:
+    for f in FIELDS + ("work",):
         assert torch.equal(got[f], want[f]), f
     aborted = ~want["ok"] & ~want["overflow"]
     assert int(want["ok"].sum()) > 0 and int(aborted.sum()) > 0
+    # an abort is the push past MAX_DEPTH - 1 nested frames
+    assert bool((want["work"][aborted, 1] >= MG.MAX_DEPTH).all())
     assert want["overflow"][-3:].all(), "the overflow lanes"
 
 
