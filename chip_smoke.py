@@ -81,14 +81,24 @@ before the final line:
    the OR into rng_tainted, storage and sel masks, with and without live
    flags; K1 with the trajectory record against the plain record on
    phases 3 and 5's inputs; (b) an action outside its head raises, the
-   batch untouched; then, with the counts zeroed just before: (c)
+   batch untouched; VecEnv's reset queue on the card (select, K3 and K2
+   on its buffers) against a CPU VecEnv's (their plain versions) over
+   100 rounds of 100-turn games at 4096 envs entered at spread turns
+   (tests/learner_queue.py), every field, the done flags and srng after
+   every round, and the mean host time of a round, in turns with the
+   host path (vec._step_columns: the done rows by nonzero, then
+   _reset_columns); then, with the counts zeroed just before: (c)
    VecEnv's sample / step loop at 512 envs for 200 steps in 20-turn
    games, CUDA against CPU on every field, srng and the episode count;
    (d) rollout in both auto-reset modes and with both mask sources, and
    kernel_rollout, CUDA against CPU; (e) VecEnv's sample-then-step rate
-   at 4096 envs; the counts of K1-act, K1-sample (every launch from the
-   carry), K1's trajectory record, K3 and K2 read just after, and one
-   VecEnv.sample under the profiler, which must be one device operation;
+   at 4096 envs in 100-turn games that end in every round, whose own
+   launches must be K1-act and K1-sample from the carry once a round,
+   select, K3 and K2 once a round that ended games (VecEnv.card_queues),
+   no settle and no fallback (VecEnv.host_queues); the counts of K1-act,
+   K1-sample (every launch from the carry), K1's trajectory record, K3
+   and K2 over c-e read just after, and one VecEnv.sample under the
+   profiler, which must be one device operation;
    then K1-act on the learner's carry timed cold (the L2 written before
    each launch, as for P1), warm, and with every env done (its staging
    floor), K1-null beside it (the first design's staging floor), K1-act
@@ -195,6 +205,7 @@ ACT_WIDTHS = (1, 4096, 4097, 16384)   # phase 8a: K1-act's staging paths
 VEC_N, VEC_STEPS, VEC_TURNS = 512, 200, 20   # phase 8c: VecEnv, CPU vs CUDA
 ROLL_N, ROLL_STEPS, ROLL_TURNS = 256, 60, 10   # phase 8d: rollouts
 RATE_STEPS = 200   # phase 8e: VecEnv's sample-then-step rate
+QUEUE_ROUNDS = 100   # phase 8b: VecEnv's queue, card vs CPU
 MIXED_N = 512      # phase 1: the mixed batch
 COMPAT_STEPS = 2000   # phase 9a: cog_env against the reference, per set
 WIN_STEPS = 4600   # phase 9a: seed 21 played to its win (4438 steps)
@@ -1481,15 +1492,17 @@ def phase7(dev, feed_checks, args, k1_ms, plain_ms):
 def phase8(dev, feed_checks, plain_step_ms):
     """The learner's surface: K1-act, K1-sample and K1's trajectory record
     against their plain versions (a), the refusal of actions outside their
-    heads (b), then with every count zeroed just before, VecEnv (c) and
-    the rollouts (d) CUDA against CPU and VecEnv's rate at full width (e),
-    the counts read just after; then the three kernels' times and bounds.
+    heads (b) and VecEnv's reset queue, card against CPU, then with every
+    count zeroed just before, VecEnv (c) and the rollouts (d) CUDA against
+    CPU and VecEnv's rate at full width (e), the counts read just after
+    (e's own too); then the three kernels' times and bounds.
     Returns their kernel records."""
     import torch
     import eldorado_tpu_torch as et
     from eldorado_tpu_torch import vec
     from eldorado_tpu_torch.core import engine as E
     from eldorado_tpu_torch.core import mapgen as MG
+    from eldorado_tpu_torch.ops import queue as Q
     from eldorado_tpu_torch.ops import step_kernel as K
     from eldorado_tpu_torch.tools import _timing, sample_cost
     from eldorado_tpu_torch.tools import inst_count as IC
@@ -1625,6 +1638,40 @@ def phase8(dev, feed_checks, plain_step_ms):
     print("phase 8b: an action outside its head raises ValueError in "
           "vec_step and VecEnv.step, each head, the batch untouched")
 
+    # ---- the reset queue: the card against the CPU, and its host time --
+    sys.path.insert(0, str(ROOT / "tests"))
+    import learner_queue as LQ
+    try:
+        got = LQ.run(*LQ.batch("t100", N_MAIN, QUEUE_ROUNDS, dev),
+                     QUEUE_ROUNDS, ref=cpu)
+    except AssertionError as e:
+        fail(f"phase 8b: VecEnv's queue on the card != on the CPU: {e}")
+    if got["card_queues"] != got["ended"] or got["host_queues"] \
+            or got["ended"] <= 0:
+        fail(f"phase 8b: VecEnv's queue counts {got}")
+    round_us = {"card queue": [], "host path": []}
+    for turn in ("card queue", "host path", "host path", "card queue"):
+        env = et.VecEnv(N_MAIN, device=dev)
+        env._attach(*LQ.batch("t100", N_MAIN, QUEUE_ROUNDS, dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(QUEUE_ROUNDS):
+            acts = env.sample()
+            if turn == "card queue":
+                env.step(acts)
+            else:
+                env._carry, _ = vec._step_columns(env._carry, env._static,
+                                                  acts)
+        torch.cuda.synchronize()
+        round_us[turn].append(1e6 * (time.perf_counter() - t0)
+                              / QUEUE_ROUNDS)
+    print(f"phase 8b: VecEnv's reset queue on the card (select, K3, K2) == "
+          f"a CPU VecEnv's (their plain versions) over {QUEUE_ROUNDS} "
+          f"rounds of 100-turn games at {N_MAIN} envs (every field, done, "
+          f"srng); {got['ended']} rounds ended games, all on the card; "
+          f"mean host µs a round (sample + step, in turns), against the "
+          f"host path (nonzero, then the checked K3 and K2): {round_us}")
+
     # ---- c-e: the learner's path, counts zeroed just before ----------
     K.step_actions.launches = K.sample.launches = 0
     K.sample.carry_launches = 0
@@ -1672,8 +1719,19 @@ def phase8(dev, feed_checks, plain_step_ms):
         print(f"phase 8d: {name}, {ROLL_N} envs x {ROLL_STEPS} steps: CUDA "
               f"== CPU on every field, srng and all {len(got[2])} per-step "
               f"outputs; {int(got[2][1].sum())} done records")
+    # e: 100-turn games entered at spread turns, so that envs end in
+    # every round and the queue runs on the card; its launches counted
+    # from this run alone
+    def learner_counts():
+        return {"K1-act": K.step_actions.launches,
+                "K1-sample from the carry": K.sample.carry_launches,
+                "select": Q.select.launches, "K3": MG.generate_map.launches,
+                "K2": K.fused_reset.launches, "settle": Q.settle.launches,
+                "card_queues": et.VecEnv.card_queues,
+                "host_queues": et.VecEnv.host_queues}
     env = et.VecEnv(N_MAIN, device=dev)
-    env.reset(seed=12345, max_steps=100000, sampler_seed=42)
+    env._attach(*LQ.batch("t100", N_MAIN, RATE_STEPS + 10, dev))
+    before = learner_counts()
     for _ in range(10):   # warm-up
         env.step(env.sample())
     torch.cuda.synchronize()
@@ -1682,6 +1740,13 @@ def phase8(dev, feed_checks, plain_step_ms):
         env.step(env.sample())
     torch.cuda.synchronize()
     rate = N_MAIN * RATE_STEPS / (time.perf_counter() - t0)
+    main = {k: v - before[k] for k, v in learner_counts().items()}
+    steps = RATE_STEPS + 10
+    if not (main["K1-act"] == main["K1-sample from the carry"] == steps
+            and main["select"] == main["K3"] == main["K2"]
+            == main["card_queues"] > 0
+            and main["host_queues"] == main["settle"] == 0):
+        fail(f"phase 8e: the main path's launches {main}")
     counts = {"K1-act": K.step_actions.launches,
               "K1-sample": K.sample.launches,
               "K1 traj": K.fused_step.record_launches["traj"],
@@ -1692,10 +1757,10 @@ def phase8(dev, feed_checks, plain_step_ms):
     if K.sample.carry_launches != counts["K1-sample"]:
         fail(f"phase 8: VecEnv.sample launched K1-sample from mask words "
              f"({counts['K1-sample'] - K.sample.carry_launches} times)")
-    print(f"phase 8e: VecEnv {N_MAIN} envs, sample then step: {rate:.0f} "
-          f"env-steps/s over {RATE_STEPS} rounds (recorded before the "
-          "one-launch sampler: 14,095,175)")
-    print(f"phase 8: learner path launches {counts}")
+    print(f"phase 8e: VecEnv {N_MAIN} envs, sample then step, 100-turn "
+          f"games ending in every round: {rate:.0f} env-steps/s over "
+          f"{RATE_STEPS} rounds; its launches {main}")
+    print(f"phase 8: learner path launches (c-e) {counts}")
     # VecEnv.sample is one launch on the card: the device's operations in
     # one call, from the profiler
     prof_acts = [torch.profiler.ProfilerActivity.CPU,

@@ -1,6 +1,8 @@
 """The chunk loop's reset queue on the card: `select` and `settle`
 (csrc/queue.cu), around K3 and K2 launched at the queue's capacity with
 its count in device memory, so that a chunk boundary reads nothing back.
+`vec.VecEnv`'s step takes a queue by `select` alone (K3 writes each env's
+own map flags there, and no tally is kept).
 
 A queue is ``idx`` ((q_cap,) int32) and ``count`` ((1,) int32): the envs
 in ``idx[:count]``, ascending, then the batch size ``n`` in every slot past
@@ -85,12 +87,18 @@ def select_plain(done, inflight, idx, count):
         inflight[rows] = True
 
 
+def check_select(done, inflight, idx, count):
+    """`select`'s checks of its tensors (`check`'s first half, for a queue
+    that no settle follows). Returns their device."""
+    return _device_of(_select_args(done, inflight, idx, count))
+
+
 def select(done, inflight, idx, count):
     """Take the next queue: the lowest-indexed envs that are done (``done``
     != 0) and, with ``inflight``, not in flight, up to q_cap, into ``idx``
     and ``count``; with ``inflight``, mark them in flight. One block on
     the card."""
-    if _device_of(_select_args(done, inflight, idx, count)).type == "cpu":
+    if check_select(done, inflight, idx, count).type == "cpu":
         return select_plain(done, inflight, idx, count)
     launch_select(done, inflight, idx, count)
 

@@ -10,9 +10,10 @@ reset runs K3 (map generation and its prelude, `core.mapgen.launch`) then
 K2 (`ops.step_kernel.fused_reset`), both on the batch's own rows and
 columns; self-play's chunk boundaries choose and settle their queues on
 the card around them (`ops.queue`: select and settle), so that the host
-reads nothing between chunks. The device of the input tensors decides
-where everything runs: CUDA tensors take the kernels, CPU tensors the
-kernels' plain versions.
+reads nothing between chunks, and VecEnv's step chooses its queue there
+too (select alone), so that K1-act's count read is its one read. The
+device of the input tensors decides where everything runs: CUDA tensors
+take the kernels, CPU tensors the kernels' plain versions.
 
 Auto-reset follows vec_cog_env::step_single
 (include/vec_environment.h:53-61): a done env resets with the same
@@ -188,18 +189,13 @@ def vec_reset_varied(seeds, n_players=4, n_pieces=3, difficulty=0,
 def _step_columns(carry, static, actions):
     """`vec_step` on a carry and its static fields (a dict, whose map rows
     the resets write in place): K1-act, then the envs done after it reset
-    (K3, then K2). Returns (the new carry, done after the step and before
-    the reset). Span ``ed.step``."""
+    (`_reset_done_columns`). Returns (the new carry, done after the step
+    and before the reset). Span ``ed.step``."""
     with span("ed.step"):
-        carry, n_done = step_actions(carry, actions, static["map_ids"],
-                                     static["min_xy"], static["n_players"],
-                                     static["max_steps"])
+        carry, n_done = step_actions(carry, actions, *_params(static))
         done = carry[_OFF["done"]] != 0
         if n_done:
-            n = carry.shape[1]
-            key = torch.where(done, torch.arange(n, device=carry.device), n)
-            idx = torch.sort(key).values[:n_done].to(_i32)
-            _reset_columns(carry, static, idx)
+            _reset_done_columns(carry, static)
         return carry, done
 
 
@@ -626,7 +622,24 @@ class VecEnv:
     a loop, and the observation surface as properties. The batch stays in
     K1's carry layout with its static fields between calls; an `EnvState`
     is built only when a property asks for one. ``device``: where the
-    batch lives (the entry points' default, the card)."""
+    batch lives (the entry points' default, the card).
+
+    A step's done envs reset within it. Up to the queue's capacity,
+    min(n, 1024) (`ops.queue.select`'s limit), they are chosen and reset on
+    the device in stream order after K1-act's count read, with no further
+    read: `ops.queue.select` takes them, lowest index first, into the
+    batch's queue, and K3 and K2 run at the queue's capacity, their slots
+    past the queue's device count idle, as in the chunk loop. These are
+    raw launches on buffers `_attach` allocates and checks once (CPU
+    tensors take the plain versions); K3 writes each env's own map flags,
+    as `_reset_columns` does, so no settle follows. A burst over the
+    capacity takes `_reset_done_columns`, as `vec_step` does. Counters
+    (the launch counters' kind, over every VecEnv of the process):
+    ``VecEnv.card_queues``, the steps whose queue ran on the device, and
+    ``VecEnv.host_queues``, the bursts."""
+
+    card_queues = 0
+    host_queues = 0
 
     def __init__(self, n_envs: int, mask_src: str = "storage",
                  device="cuda"):
@@ -637,7 +650,7 @@ class VecEnv:
         self.mask_src = mask_src
         self.device = resolve(device)
         self.sampler_rngs = None
-        self._static = self._carry = None
+        self._static = self._carry = self._queue = None
 
     def reset(self, seed=0, n_players=4, n_pieces=3, difficulty=0,
               max_steps=100000, sampler_seed=42):
@@ -649,15 +662,64 @@ class VecEnv:
 
     def _attach(self, states, sampler_rngs):
         """Adopt a batch (an `EnvState` on this env's device) and its
-        sampler engines."""
+        sampler engines; allocate the reset queue for a batch of a new size
+        and check every tensor the step's queue launches take."""
         self._static, self._carry = _split(states)
+        self._maps = tuple(self._static[f] for f in _MAP_FIELDS)
         self.sampler_rngs = sampler_rngs
+        n, dev = self._carry.shape[1], self._carry.device
+        cap = min(n, 1024)
+        if self._queue is None or self._queue[0].shape[0] != cap \
+                or self._queue[0].device != dev:
+            buf = torch.empty(cap + 1, dtype=_i32, device=dev)
+            self._queue = (buf[:cap], buf[cap:], E._prelude_out(cap, dev))
+        st, carry, (idx, count, pre) = self._static, self._carry, self._queue
+        Q.check_select(carry[_OFF["done"]], None, idx, count)
+        K.check_fused_reset(carry, st["n_players"], *pre, idx, count)
+        if carry.is_cuda:
+            MG.check_launch(carry[_OFF["rng"]], st["n_pieces"],
+                            st["difficulty"], self._maps, idx,
+                            n_players=st["n_players"], prelude=pre,
+                            count=count)
 
     def step(self, actions):
-        """`vec_step` on the batch; returns the done flags (n,)."""
-        self._carry, done = _step_columns(self._carry, self._static,
-                                          _actions(actions, self.device))
+        """`vec_step` on the batch; returns the done flags (n,), after the
+        step and before the reset. Span ``ed.step``."""
+        actions = _actions(actions, self.device)
+        with span("ed.step"):
+            carry, n_done = step_actions(self._carry, actions,
+                                         *_params(self._static))
+            self._carry = carry
+            row = carry[_OFF["done"]]
+            done = row != 0
+            if 0 < n_done <= self._queue[0].shape[0]:
+                VecEnv.card_queues += 1
+                self._reset_queue(carry, row)
+            elif n_done:
+                VecEnv.host_queues += 1
+                _reset_done_columns(carry, self._static)
         return done
+
+    def _reset_queue(self, carry, done):
+        """The step's done envs (``done``: the carry's done row), no more
+        than the queue holds: select, K3, K2 in stream order, no host read.
+        Span ``ed.reset``."""
+        st, (idx, count, pre) = self._static, self._queue
+        rng = carry[_OFF["rng"]]
+        with span("ed.reset"):
+            if carry.is_cuda:
+                Q.launch_select(done, None, idx, count)
+                MG.launch_generate_map(
+                    rng, st["n_pieces"], st["difficulty"], self._maps, idx,
+                    n_players=st["n_players"], prelude=pre, count=count)
+                K.launch_fused_reset(carry, carry, st["n_players"], *pre,
+                                     idx, count)
+            else:
+                Q.select_plain(done, None, idx, count)
+                E.reset_map_prelude_rows_plain(
+                    rng, st["n_pieces"], st["difficulty"], st["n_players"],
+                    idx, self._maps, count, pre)
+                K.fused_reset_plain(carry, st["n_players"], *pre, idx, count)
 
     def sample(self):
         """K1-sample on each env's active mask (its agent's storage row, or

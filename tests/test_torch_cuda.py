@@ -19,8 +19,10 @@ reset queue: select and settle (csrc/queue.cu) and K3 and K2 given a
 device count against their plain versions, K3's per-slot trips and
 retries and settle's sums of them against theirs, the loop CUDA against
 CPU where the queue overflows (sync and async, exact or not, two shards),
-no torch op and no host read between chunks, and the learner's launches
-as they were.
+no torch op and no host read between chunks; and the learner's reset
+queue on the card (select, K3 and K2 on VecEnv's buffers): its launches,
+and its result against the host path and against the CPU over 200
+rounds.
 
 Marked ``cuda``: skipped where torch sees no GPU. On the machine with the
 card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -33,6 +35,7 @@ import pytest
 import torch
 
 import eldorado_tpu_torch as et
+import learner_queue as LQ
 import traj_replay as TR
 from eldorado_tpu_torch import stream as S
 from eldorado_tpu_torch.core import engine as TE
@@ -1023,18 +1026,47 @@ def test_boundary_runs_no_torch_op(dev, tmp_path):
     assert delta[1] == delta[2] >= 20 and episodes > 0
 
 
-def test_learner_launch_counts_unchanged(dev):
-    """The learner's round keeps its host-sized queue: K1-act once a
-    round, K3 and K2 once in each round that ended games, and no select
-    or settle launch."""
+def test_learner_queue_launch_counts(dev):
+    """The learner's round takes its queue on the card: K1-act once a
+    round; select, K3 and K2 once in each round that ended games, each
+    such round counted in `VecEnv.card_queues`; no settle, and no burst
+    over the queue at 256 envs."""
     from eldorado_tpu_torch.ops import queue as Q
     env = et.VecEnv(256, device=dev)
     env.reset(seed=21, n_players=2, n_pieces=1, max_steps=6)
-    before = (K.step_actions.launches, MG.generate_map.launches,
-              K.fused_reset.launches, Q.select.launches, Q.settle.launches)
+
+    def counts():
+        return (K.step_actions.launches, Q.select.launches,
+                MG.generate_map.launches, K.fused_reset.launches,
+                Q.settle.launches, et.VecEnv.card_queues,
+                et.VecEnv.host_queues)
+    before = counts()
     resets = sum(bool(env.step(env.sample()).any()) for _ in range(40))
-    after = (K.step_actions.launches, MG.generate_map.launches,
-             K.fused_reset.launches, Q.select.launches, Q.settle.launches)
-    assert [x - y for x, y in zip(after, before)] == [40, resets, resets,
-                                                      0, 0]
+    assert [x - y for x, y in zip(counts(), before)] == [
+        40, resets, resets, resets, 0, resets, 0]
     assert resets > 0
+
+
+# (case, envs): 100-turn games at the main path's batch, cog-4p-mixed-t100's
+# levels, and a step that ends 1030 of 1100 games, over the queue's 1024
+@pytest.mark.parametrize("case,n", [("t100", 4096), ("mixed", 4096),
+                                    ("burst", 1100)])
+def test_vecenv_card_queue_equals_host_path_cuda(dev, case, n):
+    """tests/test_torch_vecenv.py's check on the card over 200 rounds: the
+    queue chosen by select and reset by K3 and K2 equals the host path
+    (`_reset_columns` on the ascending done rows) in every field, the done
+    flags and the engines after every round; the burst alone falls back."""
+    got = LQ.run(*LQ.batch(case, n, 200, dev), 200)
+    assert got["ended"] >= 20, got
+    assert got["bursts"] == (case == "burst"), got
+    assert got["card_queues"] == got["ended"] - got["bursts"], got
+    assert got["host_queues"] == got["bursts"], got
+
+
+def test_vecenv_card_queue_equals_cpu_cuda(dev):
+    """The queue on the card against a CPU VecEnv's (the plain select, K3
+    and K2, which share no code with the kernels) over 200 rounds of
+    cog-4p-mixed-t100's levels at 512 envs."""
+    got = LQ.run(*LQ.batch("mixed", 512, 200, dev), 200, ref="cpu")
+    assert got["ended"] >= 20 and got["bursts"] == 0, got
+    assert got["card_queues"] == got["ended"] and not got["host_queues"]

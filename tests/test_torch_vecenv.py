@@ -12,8 +12,9 @@ test_api_surfaces.py::test_vecenv_sample_step_loop); and the ValueError
 on actions outside their heads. Then, on the port alone: the trajectory
 record's packing on values these short games never reach (the rewards of
 a won game), the exact-mode check of tests/test_exact_reset.py against
-the port's own rollout(auto_reset="step"), and a trajectory golden
-through VecEnv.
+the port's own rollout(auto_reset="step"), a trajectory golden through
+VecEnv, and VecEnv's reset queue on the device against the host path
+(tests/learner_queue.py), with the ops its step runs around the kernels.
 
 Most of the file's time is the JAX package compiling each static
 configuration once (vec_reset, vec_step, the four rollouts, the
@@ -33,6 +34,7 @@ import pytest
 import torch
 
 import eldorado_tpu_torch as et
+import learner_queue as LQ
 import traj_replay as TR
 from eldorado_tpu import vec as JV
 from eldorado_tpu.core import engine as JE
@@ -217,15 +219,30 @@ def test_reset_done_bucketed_equals_jax(some_done):
     assert again[1] == 0 and again[0] is got
 
 
-def test_vecenv_sample_step_loop():
+@pytest.mark.parametrize("levels", ["uniform", "mixed"])
+def test_vecenv_sample_step_loop(levels):
     """tests/test_api_surfaces.py's VecEnv loop on the port (shapes, the
     dead n_*_uses stats), held to the JAX package's VecEnv field for field
-    after every step; 6-turn games, so envs reset on the way."""
+    after every step; envs reset on the way (through the step's reset
+    queue). "uniform": 6-turn games; "mixed": each env at its level of
+    cog-4p-mixed-t100 (`learner_queue.LEVELS`) from vec_reset_varied, in
+    100-turn games entered near their end (`learner_queue.batch`)."""
     env = et.VecEnv(N, device="cpu")
-    obs = env.reset(seed=21, n_pieces=PIECES, max_steps=TURNS)
     ref = JV.VecEnv(N)
-    ref.states = JV.vec_reset(21, N, 4, PIECES, 0, TURNS)
-    ref.sampler_rngs = JV.sampler_init(42, N)
+    if levels == "uniform":
+        obs = env.reset(seed=21, n_pieces=PIECES, max_steps=TURNS)
+        ref.states = JV.vec_reset(21, N, 4, PIECES, 0, TURNS)
+        ref.sampler_rngs = JV.sampler_init(42, N)
+    else:
+        states, srng = LQ.batch("mixed", N, 25, "cpu")
+        env._attach(states, srng)
+        obs = env.observations
+        ref.states = JV.vec_reset_varied(
+            5000 + np.arange(N), 4, [LQ.LEVELS[i % 3][0] for i in range(N)],
+            [LQ.LEVELS[i % 3][1] for i in range(N)], LQ.TURNS)._replace(
+                turn_counter=jnp.asarray(states.turn_counter.numpy()))
+        ref.sampler_rngs = JV.sampler_init(77, N)
+        assert_states_equal(states, ref.states, "reset")
     assert obs["map"].shape == (N, 48, 48, 7)
     assert obs["action_masks"].shape == (N, 4, 92)
     for key, want in ref.observations.items():
@@ -371,3 +388,95 @@ def test_vecenv_replays_trajectory_golden():
                          torch.stack(dones), maps)
     assert len(maps) > 1
     TR.check(name, d, traj, steps)
+
+
+# (case, envs, rounds): 100-turn games, cog-4p-mixed-t100's levels, and a
+# step that ends 1030 of 1100 games, over the queue's 1024. A round at
+# 1100 envs takes ~0.35 s of plain kernels here, so the burst runs 8
+# rounds on the CPU; the card test runs it over 200.
+QUEUE_CASES = [("t100", 24, 200), ("mixed", 18, 200), ("burst", 1100, 8)]
+
+
+@pytest.mark.parametrize("case,n,rounds", QUEUE_CASES)
+def test_vecenv_card_queue_equals_host_path(case, n, rounds):
+    """VecEnv.step choosing its queue by select and resetting it with K3
+    and K2 on its buffers (their plain versions here) equals the host
+    path, `_reset_columns` on the ascending done rows, in every field, the
+    done flags and the sampler engines after every round; every round that
+    ended games counts in `VecEnv.card_queues` but the burst, which counts
+    in `VecEnv.host_queues` alone."""
+    got = LQ.run(*LQ.batch(case, n, rounds, "cpu"), rounds)
+    assert got["ended"] >= (2 if case == "burst" else 10), got
+    assert got["bursts"] == (case == "burst"), got
+    assert got["card_queues"] == got["ended"] - got["bursts"], got
+    assert got["host_queues"] == got["bursts"], got
+
+
+def test_vecenv_step_queue_runs_no_sort(monkeypatch):
+    """Around K1-act, select, K3 and K2 (their plain versions, whose own
+    ops are not counted), a VecEnv step whose done envs fit the queue runs
+    no sort, nonzero or arange and allocates nothing of the prelude's
+    shapes: select, K3 and K2 run in that order on the queue's own
+    buffers, the same every round."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class Ops(TorchDispatchMode):
+        """The ops dispatched outside the kernels' plain versions."""
+        def __init__(self):
+            super().__init__()
+            self.inside, self.names, self.shapes, self.calls = 0, [], [], []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not self.inside:
+                self.names.append(func.overloadpacket.__name__)
+                self.shapes += [tuple(t.shape) for t in tree_flatten(out)[0]
+                                if isinstance(t, torch.Tensor)]
+            return out
+
+    ops = Ops()
+
+    def kernel(name, fn):
+        def run(*args):
+            if not ops.inside:   # fused_reset_plain calls itself
+                ops.calls.append((name, args))
+            ops.inside += 1
+            try:
+                return fn(*args)
+            finally:
+                ops.inside -= 1
+        return run
+
+    V = et.vec
+    monkeypatch.setattr(V, "step_actions", kernel("k1act", V.step_actions))
+    monkeypatch.setattr(V.Q, "select_plain",
+                        kernel("select", V.Q.select_plain))
+    monkeypatch.setattr(V.E, "reset_map_prelude_rows_plain",
+                        kernel("k3", V.E.reset_map_prelude_rows_plain))
+    monkeypatch.setattr(V.K, "fused_reset_plain",
+                        kernel("k2", V.K.fused_reset_plain))
+    env = et.VecEnv(N, device="cpu")
+    env.reset(seed=21, n_pieces=1, max_steps=2)
+    idx, count, pre = env._queue
+    queues, bursts = 0, et.VecEnv.host_queues
+    for t in range(12):
+        acts = env.sample()
+        ops.names, ops.shapes, ops.calls = [], [], []
+        with ops:
+            done = env.step(acts)
+        k = int(done.sum())
+        assert et.VecEnv.host_queues == bursts
+        assert [c[0] for c in ops.calls] == (
+            ["k1act", "select", "k3", "k2"] if k else ["k1act"]), t
+        assert not {"sort", "nonzero", "arange"} & set(ops.names), \
+            (t, ops.names)
+        assert not [s for s in ops.shapes
+                    if s[1:] in ((4, 2), (4, TE.N_BALL))], (t, ops.shapes)
+        if k:
+            queues += 1
+            (_, sel), (_, k3), (_, k2) = ops.calls[1:]
+            assert sel[2] is idx and sel[3] is count
+            assert k3[4] is idx and k3[6] is count and k3[7] is pre
+            assert all(a is b for a, b in zip(k2[2:], pre + (idx, count)))
+    assert queues >= 3
